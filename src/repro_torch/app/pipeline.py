@@ -29,6 +29,7 @@ from repro_torch.app import ops
 from repro_torch.core import ParamSpace, StageSpec, TaskSpec, Workflow, dice
 from repro_torch.core.metrics import reuse_factor
 from repro_torch.core.params import ParamSet
+from repro_torch.device import resolve_device
 from repro_torch.engine import ClusterSpec, MemoryBudget, execute_plan, plan_study
 
 __all__ = [
@@ -191,19 +192,6 @@ def build_workflow(h: int, w: int, costs: Optional[Dict[str, float]] = None) -> 
 # --------------------------------------------------------------------------
 # Tensor boundary and device.
 # --------------------------------------------------------------------------
-
-
-def resolve_device(device: Union[None, str, torch.device] = None) -> torch.device:
-    """``None`` means the card, ``cuda:0``; with no CUDA device that raises
-    rather than running on the CPU. Anything else is taken as given."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: the study runs on the card by default; "
-                "pass device='cpu' to run the plain versions on the CPU"
-            )
-        return torch.device("cuda:0")
-    return torch.device(device)
 
 
 def state_from_numpy(

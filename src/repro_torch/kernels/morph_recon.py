@@ -4,11 +4,9 @@ PyTorch version.
 
 The kernel replaces the Pallas TPU kernel of ``repro.kernels.morph_recon``
 (``_recon_sweep_kernel``, ``tile_sweep``, ``morph_reconstruct_pallas``). The
-source says how it is laid out and why its result is exact. It is built with
-``nvcc`` for ``sm_90a`` into a shared library with a plain C interface at
-first use, into ``_build/`` beside this file, and loaded with ``ctypes``.
-There is no fallback: a missing ``nvcc``, a failed build or a failed launch
-raises.
+source says how it is laid out and why its result is exact. It is built by
+:mod:`repro_torch.kernels.nvcc` at first use. There is no fallback: a
+missing ``nvcc``, a failed build or a failed launch raises.
 
 The plain version, :func:`morph_reconstruct_ref`, is the one the dispatch in
 :mod:`repro_torch.kernels.ops` runs on CPU tensors; tests and ``chip_smoke.py``
@@ -19,100 +17,27 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import pathlib
-import shutil
-import subprocess
-import tempfile
-import threading
-import time
-from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.kernels import nvcc
+from repro_torch.kernels.nvcc import NVCC_FLAGS, Build, LaunchCount
 from repro_torch.kernels.ref import morph_reconstruct_ref
 
-__all__ = ["build", "LAUNCHES", "morph_reconstruct_cuda", "morph_reconstruct_ref"]
+__all__ = ["build", "LAUNCHES", "NVCC_FLAGS", "morph_reconstruct_cuda", "morph_reconstruct_ref"]
 
-_SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "morph_recon.cu"
-_BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
 # Sweeps a tile may run in one launch before it hands over to the next.
 MAX_INNER = 64
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    candidate = pathlib.Path(cuda_home) / "bin" / "nvcc"
-    if candidate.is_file():
-        return str(candidate)
-    raise RuntimeError("nvcc not found (PATH or $CUDA_HOME/bin); cannot build morph_recon")
-
-
-class Build(NamedTuple):
-    lib: ctypes.CDLL
-    seconds: Optional[float]  # None when the library was already built
-    ptxas_info: str  # nvcc's ``-Xptxas -v`` lines of this build
-
-
 @functools.lru_cache(maxsize=None)
 def build() -> Build:
-    """Build (once per source and flag set) and load the kernel's library.
-
-    Two threads racing on the first call both compile, into temporary
-    files that ``os.replace`` moves atomically onto one name; either
-    result is the same library.
-    """
-    digest = hashlib.sha256(_SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    target = _BUILD_DIR / f"libmorph_recon_{digest.hexdigest()[:16]}.so"
-    seconds, info = None, ""
-    if not target.is_file():
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-        os.close(fd)
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(_SOURCE)],
-            capture_output=True,
-            text=True,
-        )
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) building {_SOURCE}:\n{proc.stderr}"
-            )
-        os.replace(tmp, target)
-        seconds = time.perf_counter() - t0
-        info = "\n".join(ln for ln in proc.stderr.splitlines() if "ptxas info" in ln)
-    lib = ctypes.CDLL(str(target))
-    fn = lib.morph_recon_sweep
+    """Build (once per source and flag set) and load the kernel's library."""
+    built = nvcc.build_library("morph_recon")
+    fn = built.lib.morph_recon_sweep
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return Build(lib, seconds, info)
-
-
-class LaunchCount:
-    """Thread-safe count of kernel launches, so that a caller can show that
-    a run went through the kernel."""
-
-    def __init__(self) -> None:
-        self._lock = threading.Lock()
-        self.value = 0  # guard: _lock
-
-    def add(self) -> None:
-        with self._lock:
-            self.value += 1
-
-    def reset(self) -> None:
-        with self._lock:
-            self.value = 0
+    return built
 
 
 # one per outer fixpoint step of morph_reconstruct_cuda

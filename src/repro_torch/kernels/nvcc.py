@@ -1,0 +1,97 @@
+"""Build and count the hand-written CUDA kernels.
+
+Each kernel is one ``csrc/<name>.cu`` with a plain C interface. It is built
+with ``nvcc`` for ``sm_90a`` into a shared library at first use, into
+``_build/`` beside this file, and loaded with ``ctypes``. There is no
+fallback: a missing ``nvcc`` or a failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from typing import NamedTuple, Optional
+
+__all__ = ["NVCC_FLAGS", "Build", "LaunchCount", "build_library", "source"]
+
+_KERNELS = pathlib.Path(__file__).resolve().parent
+_BUILD_DIR = _KERNELS / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+
+def source(name: str) -> pathlib.Path:
+    return _KERNELS / "csrc" / f"{name}.cu"
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = pathlib.Path(cuda_home) / "bin" / "nvcc"
+    if candidate.is_file():
+        return str(candidate)
+    raise RuntimeError("nvcc not found (PATH or $CUDA_HOME/bin); cannot build the CUDA kernels")
+
+
+class Build(NamedTuple):
+    lib: ctypes.CDLL
+    seconds: Optional[float]  # None when the library was already built
+    ptxas_info: str  # nvcc's ``-Xptxas -v`` lines of this build
+
+
+def build_library(name: str) -> Build:
+    """Build ``csrc/<name>.cu`` (once per source and flag set) and load it.
+
+    Two threads or processes racing on the first build both compile, into
+    temporary files that ``os.replace`` moves atomically onto one name;
+    either result is the same library.
+    """
+    src = source(name)
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    target = _BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
+    seconds, info = None, ""
+    if not target.is_file():
+        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
+        os.close(fd)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
+            capture_output=True,
+            text=True,
+        )
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(f"nvcc failed ({proc.returncode}) building {src}:\n{proc.stderr}")
+        os.replace(tmp, target)
+        seconds = time.perf_counter() - t0
+        info = "\n".join(ln for ln in proc.stderr.splitlines() if "ptxas info" in ln)
+    return Build(ctypes.CDLL(str(target)), seconds, info)
+
+
+class LaunchCount:
+    """Thread-safe count of kernel launches, so that a caller can show that
+    a run went through the kernel."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self.value = 0  # guard: _lock
+
+    def add(self) -> None:
+        with self._lock:
+            self.value += 1
+
+    def reset(self) -> None:
+        with self._lock:
+            self.value = 0

@@ -11,7 +11,20 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import morph_recon
+from repro_torch.kernels import morph_recon, ssm_scan as ssm_scan_kernel
+from repro_torch.kernels import ref as kref
+
+
+def _on_card(t: torch.Tensor, use_kernel: Optional[bool]) -> bool:
+    """``use_kernel`` states what the caller expects and raises where the
+    device disagrees: ``True`` on a CPU tensor, or ``False`` on a CUDA one."""
+    on_card = t.device.type == "cuda"
+    if use_kernel is not None and bool(use_kernel) != on_card:
+        raise ValueError(
+            f"use_kernel={use_kernel} but the tensors are on {t.device}: "
+            "the kernel runs exactly for CUDA tensors"
+        )
+    return on_card
 
 
 def morph_reconstruct(
@@ -26,21 +39,39 @@ def morph_reconstruct(
     """Morphological reconstruction by dilation (see kernels/morph_recon.py).
 
     The signature is that of ``repro.kernels.ops.morph_reconstruct``.
-    ``use_kernel`` states what the caller expects and raises where the
-    device disagrees: ``True`` on a CPU tensor, or ``False`` on a CUDA one.
     ``block`` and ``inner_iters`` size the TPU kernel's blocks; the CUDA
     kernel fixes its own tile and sweep cap and does not read them.
     """
-    on_card = marker.device.type == "cuda"
-    if use_kernel is not None and bool(use_kernel) != on_card:
-        raise ValueError(
-            f"use_kernel={use_kernel} but the tensors are on {marker.device}: "
-            "the kernel runs exactly for CUDA tensors"
-        )
-    if not on_card:
+    if not _on_card(marker, use_kernel):
         return morph_recon.morph_reconstruct_ref(marker, mask, conn=conn)
     return morph_recon.morph_reconstruct_cuda(
         marker.to(torch.float32).contiguous(),
         mask.to(torch.float32).contiguous(),
         conn=conn,
     )
+
+
+def ssm_scan(
+    x: torch.Tensor,
+    a: torch.Tensor,
+    b: torch.Tensor,
+    c: torch.Tensor,
+    h0: Optional[torch.Tensor] = None,
+    *,
+    use_kernel: Optional[bool] = None,
+    chunk: int = 64,
+    analysis: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked diagonal-gated linear recurrence (see kernels/ssm_scan.py).
+
+    The signature is that of ``repro.kernels.ops.ssm_scan``. ``analysis``
+    swaps in the shape-preserving stub. Like the TPU kernel, the CUDA kernel
+    starts from a zero state and raises when given ``h0``.
+    """
+    if analysis:
+        return kref.ssm_scan_stub(x, a, b, c, h0)
+    if not _on_card(x, use_kernel):
+        return kref.ssm_scan_chunked(x, a, b, c, h0, chunk=chunk)
+    if h0 is not None:
+        raise NotImplementedError("the ssm_scan kernel requires h0=None (zeros)")
+    return ssm_scan_kernel.ssm_scan_cuda(x, a, b, c, chunk=chunk)

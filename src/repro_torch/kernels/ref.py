@@ -1,12 +1,14 @@
-"""Plain PyTorch morphology: the neighbourhood shift, dilation, erosion and
-grayscale reconstruction by dilation. They are the correctness references for
-the CUDA kernel in :mod:`repro_torch.kernels.morph_recon` and the helpers the
-application layer builds on. Every function here runs on any device.
+"""Plain PyTorch versions of the kernels' functions: the neighbourhood shift,
+dilation, erosion and grayscale reconstruction by dilation (for
+:mod:`repro_torch.kernels.morph_recon` and the application layer), and the
+diagonal-gated linear recurrence (for :mod:`repro_torch.kernels.ssm_scan`).
+They are the correctness references for the CUDA kernels. Every function
+here runs on any device.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -17,6 +19,9 @@ __all__ = [
     "dilate",
     "erode",
     "morph_reconstruct_ref",
+    "ssm_scan_ref",
+    "ssm_scan_chunked",
+    "ssm_scan_stub",
 ]
 
 
@@ -68,3 +73,105 @@ def morph_reconstruct_ref(
         if not bool(torch.any(new != m)):
             return new
         m = new
+
+
+# ---------------------------------------------------------------------------
+# Diagonal-gated linear recurrence (for kernels/ssm_scan.py)
+# ---------------------------------------------------------------------------
+
+
+def _per_channel(a: torch.Tensor, n: int) -> torch.Tensor:
+    """A (B, S, H) scalar-per-head decay broadcast over the state dim."""
+    return a.unsqueeze(-1).expand(*a.shape, n) if a.dim() == 3 else a
+
+
+def ssm_scan_ref(
+    x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+    h0: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The recurrence one token at a time (the oracle):
+
+        h_t = a_t ⊙ h_{t-1} + b_t ⊗ x_t          (state: (N, P) per head)
+        y_t = h_tᵀ · c_t
+
+    Shapes: x (B, S, H, P) values; a (B, S, H) scalar-per-head decay
+    (Mamba2) or (B, S, H, N) per-channel decay (RWKV-6), in (0, 1]; b, c
+    (B, S, H, N); h (B, H, N, P). Returns (y in x's dtype, h_final fp32).
+    """
+    bsz, s, h, p = x.shape
+    n = b.shape[-1]
+    a = _per_channel(a, n).float()
+    xf, bf, cf = x.float(), b.float(), c.float()
+    state = (
+        torch.zeros(bsz, h, n, p, dtype=torch.float32, device=x.device)
+        if h0 is None else h0.float()
+    )
+    ys = []
+    for t in range(s):
+        state = a[:, t, :, :, None] * state + bf[:, t, :, :, None] * xf[:, t, :, None, :]
+        ys.append(torch.einsum("bhnp,bhn->bhp", state, cf[:, t]))
+    y = torch.stack(ys, 1) if ys else xf.new_zeros(bsz, 0, h, p)
+    return y.to(x.dtype), state
+
+
+def ssm_scan_chunked(
+    x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+    h0: Optional[torch.Tensor] = None, *, chunk: int = 64,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The same recurrence in chunks of ``chunk`` tokens, in log space: the
+    arithmetic of the TPU kernel and of the JAX package's ``ssm_scan_xla``,
+    which the dispatch runs on CPU tensors. Within a chunk, with
+    ``L_t = Σ_{i≤t} log a_i``:
+
+        y_t    = Σ_{i≤t} (c_t · (exp(L_t − L_i) ⊙ b_i)) x_i + (c_t ⊙ exp(L_t)) · h
+        h_next = exp(L_C) ⊙ h + Σ_i (exp(L_C − L_i) ⊙ b_i) ⊗ x_i
+
+    Every exponent is ≤ 0, so nothing overflows and nothing divides by a
+    vanishing cumulative decay. A ragged last chunk is padded with a = 1,
+    b = 0, which changes nothing.
+    """
+    bsz, s, h, p = x.shape
+    n = b.shape[-1]
+    out_dtype = x.dtype
+    a = _per_channel(a, n)
+    cdim = min(chunk, s)
+    spad = -(-s // cdim) * cdim
+    pad = (0, 0, 0, 0, 0, spad - s)  # the S dim of (B, S, H, ·)
+    x = F.pad(x.float(), pad)
+    a = F.pad(a.float(), pad, value=1.0)
+    b = F.pad(b.float(), pad)
+    c = F.pad(c.float(), pad)
+    hst = (
+        torch.zeros(bsz, h, n, p, dtype=torch.float32, device=x.device)
+        if h0 is None else h0.float()
+    )
+    tri = torch.tril(torch.ones(cdim, cdim, dtype=torch.bool, device=x.device))
+    ys = []
+    for j in range(0, spad, cdim):
+        xb, ab, bb, cb = (t[:, j : j + cdim] for t in (x, a, b, c))  # (B, C, H, ·)
+        L = torch.cumsum(torch.log(torch.clamp_min(ab, 1e-37)), dim=1)
+        diff = L[:, :, None] - L[:, None]  # (B, C, C, H, N), ≤ 0 on the lower triangle
+        w = torch.where(tri[None, :, :, None, None], torch.exp(diff), 0.0)
+        sti = torch.einsum("btihn,bthn,bihn->bhti", w, cb, bb)
+        y = torch.einsum("bhti,bihp->bthp", sti, xb)
+        y = y + torch.einsum("bthn,bhnp->bthp", cb * torch.exp(L), hst)
+        dlast = torch.exp(L[:, -1:] - L)  # (B, C, H, N), ≤ 1
+        hst = torch.exp(L[:, -1])[..., None] * hst + torch.einsum(
+            "bthn,bthp->bhnp", bb * dlast, xb
+        )
+        ys.append(y)
+    return torch.cat(ys, 1)[:, :s].to(out_dtype), hst
+
+
+def ssm_scan_stub(
+    x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+    h0: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Analysis-mode stand-in: keeps the shapes and a data dependence on
+    every input at O(S) cost; the recurrence's true cost is counted in
+    closed form elsewhere."""
+    amean = (a if a.dim() == 4 else a.unsqueeze(-1)).mean(-1, keepdim=True)
+    y = x * amean * b.mean(-1, keepdim=True) * c.mean(-1, keepdim=True)
+    hf = b[:, -1, :, :, None] * x[:, -1, :, None, :]
+    return y.to(x.dtype), hf.float()
+

@@ -1,0 +1,43 @@
+"""Shared neural-net layers (functional style; params are dicts of tensors).
+
+Conventions, as in the JAX package:
+  * matrices are used in bf16 (``COMPUTE_DTYPE``); norms, biases and decay
+    vectors stay fp32;
+  * stacked per-layer weights carry a leading L dim; the model walks it
+    with a Python loop.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple, Union
+
+import torch
+
+COMPUTE_DTYPE = torch.bfloat16
+
+__all__ = ["COMPUTE_DTYPE", "rms_norm", "normal_init"]
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    dt = x.dtype
+    x32 = x.float()
+    var = x32.square().mean(-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps) * (1.0 + scale.float())).to(dt)
+
+
+def normal_init(
+    gen: torch.Generator,
+    shape: Tuple[int, ...],
+    std: Optional[float] = None,
+    *,
+    dtype: torch.dtype = torch.float32,
+    device: Union[None, str, torch.device] = None,
+) -> torch.Tensor:
+    """Fan-in-scaled normal init, drawn in fp32 from ``gen`` on its device
+    and stored as ``dtype``. Fan-in is the second-to-last dim (stacked
+    per-layer weights carry leading L/E dims that must not affect scale)."""
+    fan_in = shape[-2] if len(shape) >= 2 else shape[0]
+    std = std if std is not None else 1.0 / math.sqrt(fan_in)
+    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device or gen.device)
+    return w.mul_(std).to(dtype)

@@ -1,0 +1,135 @@
+"""State-space blocks: RWKV-6 (Finch) time mixing and channel mixing.
+
+Time mixing reduces to the diagonal-gated linear recurrence of
+:func:`repro_torch.kernels.ops.ssm_scan`:
+
+    h_t = w_t ⊙ h_{t-1} + k_t ⊗ v_t ;   y_t = h_tᵀ r_t
+
+with a per-channel, data-dependent decay ``w`` and the current-token bonus
+``u`` added at readout, as in the JAX package (decay applied at the
+consuming step). Prefill runs the chunked scan (the CUDA kernel on the
+card); decode updates the state directly, O(1) a token, with plain tensor
+code. The Mamba2 half of the JAX module is not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops as kops
+from repro_torch.models.layers import COMPUTE_DTYPE
+
+__all__ = [
+    "rwkv6_block",
+    "rwkv6_channel_mix",
+    "rwkv6_decode",
+    "rwkv6_init_cache",
+]
+
+
+def _token_shift(x: torch.Tensor, prev: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x_{t-1} stream; ``prev`` is the carry-in last token (B, D)."""
+    pad = torch.zeros_like(x[:, :1]) if prev is None else prev[:, None, :]
+    return torch.cat([pad, x[:, :-1]], dim=1)
+
+
+def _rwkv_mix(x, xprev, mu):
+    return x + (xprev - x) * mu.to(x.dtype)
+
+
+def _rwkv_project(x, xprev, p, cfg):
+    b, s, d = x.shape
+    h, n = cfg.ssm_heads, cfg.ssm_head_dim
+    dt = COMPUTE_DTYPE
+    r = _rwkv_mix(x, xprev, p["mu_r"]) @ p["w_r"].to(dt)
+    k = _rwkv_mix(x, xprev, p["mu_k"]) @ p["w_k"].to(dt)
+    v = _rwkv_mix(x, xprev, p["mu_v"]) @ p["w_v"].to(dt)
+    g = _rwkv_mix(x, xprev, p["mu_g"]) @ p["w_g"].to(dt)
+    # data-dependent per-channel decay (low-rank): w in (0, 1)
+    xw = _rwkv_mix(x, xprev, p["mu_w"])
+    wlog = p["w0"].float() + (
+        torch.tanh(xw @ p["w_lora_a"].to(dt)).float() @ p["w_lora_b"].float()
+    )
+    w = torch.exp(-torch.exp(wlog))  # (B,S,D) per-channel decay
+    shape = (b, s, h, n)
+    return r.reshape(shape), k.reshape(shape), v.reshape(shape), g, w.reshape(shape)
+
+
+def _rwkv_readout(r, k, v, y_scan, p, cfg, b, s):
+    """bonus + group-norm + gate input + out-proj input, shared by prefill
+    and decode."""
+    h, n = cfg.ssm_heads, cfg.ssm_head_dim
+    u = p["u"].float().reshape(h, n)
+    rk = (r.float() * ((u - 1.0)[None, None] * k.float())).sum(-1, keepdim=True)
+    y = y_scan.float() + rk * v.float()
+    # per-head group norm; the variance is the population one, as jnp.var's
+    mean = y.mean(-1, keepdim=True)
+    var = y.var(-1, keepdim=True, correction=0)
+    y = (y - mean) * torch.rsqrt(var + 1e-5)
+    y = y * p["ln_w"].float().reshape(1, 1, h, n) + p["ln_b"].float().reshape(1, 1, h, n)
+    return y.reshape(b, s, h * n).to(COMPUTE_DTYPE)
+
+
+def rwkv6_block(
+    x: torch.Tensor, p: Dict[str, torch.Tensor], cfg, *, return_state: bool = False,
+    analysis: bool = False,
+):
+    """RWKV-6 time-mix, prefill path. x: (B, S, D)."""
+    b, s, d = x.shape
+    xprev = _token_shift(x)
+    r, k, v, g, w = _rwkv_project(x, xprev, p, cfg)
+    # recurrence: h_t = diag(w_t) h_{t-1} + k_t ⊗ v_t ; y = r·h_t
+    y_scan, hfinal = kops.ssm_scan(v, w, k, r, analysis=analysis)  # per-channel decay
+    y = _rwkv_readout(r, k, v, y_scan, p, cfg, b, s)
+    y = y * F.silu(g.float()).to(COMPUTE_DTYPE)
+    out = y @ p["w_o"].to(COMPUTE_DTYPE)
+    if return_state:
+        return out, hfinal
+    return out
+
+
+def rwkv6_init_cache(
+    cfg, batch: int, dtype=torch.float32, *, device=None
+) -> Dict[str, torch.Tensor]:
+    h, n = cfg.ssm_heads, cfg.ssm_head_dim
+    return {
+        "state": torch.zeros((batch, h, n, n), dtype=torch.float32, device=device),
+        "tm_prev": torch.zeros((batch, cfg.d_model), dtype=dtype, device=device),
+        "cm_prev": torch.zeros((batch, cfg.d_model), dtype=dtype, device=device),
+    }
+
+
+def rwkv6_decode(
+    x: torch.Tensor, p: Dict[str, torch.Tensor], cfg, cache: Dict[str, torch.Tensor]
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """x: (B, 1, D); O(1) per-token state update. Returns a new cache; the
+    given one is not modified (prefill caches are shared across runs)."""
+    b = x.shape[0]
+    xprev = cache["tm_prev"][:, None, :].to(x.dtype)
+    r, k, v, g, w = _rwkv_project(x, xprev, p, cfg)
+    state = (
+        w[:, 0, :, :, None].float() * cache["state"]
+        + k[:, 0, :, :, None].float() * v[:, 0, :, None, :].float()
+    )
+    y_scan = torch.einsum("bhnp,bhn->bhp", state, r[:, 0].float())[:, None]
+    y = _rwkv_readout(r, k, v, y_scan, p, cfg, b, 1)
+    y = y * F.silu(g.float()).to(COMPUTE_DTYPE)
+    out = y @ p["w_o"].to(COMPUTE_DTYPE)
+    return out, {"state": state, "tm_prev": x[:, 0], "cm_prev": cache["cm_prev"]}
+
+
+def rwkv6_channel_mix(
+    x: torch.Tensor, p: Dict[str, torch.Tensor], prev: Optional[torch.Tensor] = None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """RWKV FFN (channel mix). Returns (y, last_token)."""
+    dt = COMPUTE_DTYPE
+    xprev = _token_shift(x, prev)
+    xk = _rwkv_mix(x, xprev, p["mu_ck"])
+    xr = _rwkv_mix(x, xprev, p["mu_cr"])
+    kk = torch.square(torch.relu((xk @ p["w_ck"].to(dt)).float()))
+    y = kk.to(dt) @ p["w_cv"].to(dt)
+    rr = torch.sigmoid((xr @ p["w_cr"].to(dt)).float()).to(dt)
+    return rr * y, x[:, -1]

@@ -51,6 +51,9 @@ import time
 from typing import Any, Callable, Dict, Iterator, Optional, Set, Tuple
 
 import numpy as np
+import torch
+
+from repro_torch.runtime.tensors import tensor_from_host, tensor_to_host
 
 try:  # advisory file locks are POSIX-only; SharedStore degrades gracefully
     import fcntl
@@ -118,6 +121,11 @@ def mount_store(
     return SharedStore(ram_bytes, disk_dir=spec, writer_id=writer_id)
 
 
+# npz entry naming the entries that were torch tensors: a JSON object of
+# ``{entry: [dtype, device type]}`` as uint8 bytes
+_TENSORS = "__torch_tensors__"
+
+
 def _serialise(v: Any) -> bytes:
     """npz for array payloads (dicts of str→array, arrays); a pickle
     fallback — stored as a uint8 array under ``__pickled__`` so the entry
@@ -125,28 +133,62 @@ def _serialise(v: Any) -> bytes:
     lets RPC worker results (arbitrary Python values, dicts keyed by int
     run_id) cross the store **bit-exactly**: coercing a Python int through
     ``np.asarray`` would silently wrap at 64 bits, which the conformance
-    suite's collision-sensitive integer workloads would detect."""
+    suite's collision-sensitive integer workloads would detect.
+
+    A torch tensor, of any dtype and on any device, is stored from the host
+    (bf16 as its 16-bit view) with its dtype and device type under
+    ``__torch_tensors__``, and :func:`_deserialise` rebuilds it as a tensor
+    on that device type."""
     def _is_array(x: Any) -> bool:
-        # genuinely array-like only (ndarray / jnp / np scalar): coercing a
-        # Python scalar through np.asarray would change its type (and wrap
+        # genuinely array-like only (ndarray / tensor / np scalar): coercing
+        # a Python scalar through np.asarray would change its type (and wrap
         # a large int), breaking the bit-exact round-trip contract
-        return isinstance(x, np.ndarray) or hasattr(x, "__array__")
+        return isinstance(x, (np.ndarray, torch.Tensor)) or hasattr(x, "__array__")
+
+    def _host(x: Any) -> Tuple[np.ndarray, Optional[Tuple[str, str]]]:
+        if isinstance(x, torch.Tensor):
+            arr, dtype, device = tensor_to_host(x)
+            return arr, (dtype, device)
+        return np.asarray(x), None
 
     buf = io.BytesIO()
+    named = None
     if isinstance(v, dict) and v and all(isinstance(k, str) for k in v):
-        if all(_is_array(vv) for vv in v.values()):
-            arrs = {kk: np.asarray(vv) for kk, vv in v.items()}
-            if not any(a.dtype.hasobject for a in arrs.values()):
-                np.savez(buf, **arrs)
-                return buf.getvalue()
+        if _TENSORS not in v and all(_is_array(vv) for vv in v.values()):
+            named = v
     elif _is_array(v):
-        a = np.asarray(v)
-        if not a.dtype.hasobject:
-            np.savez(buf, __value__=a)
+        named = {"__value__": v}
+    if named is not None:
+        try:
+            host = {k: _host(x) for k, x in named.items()}
+        except TypeError:  # a tensor dtype with no host form: pickle it
+            host = None
+        if host is not None and not any(a.dtype.hasobject for a, _ in host.values()):
+            arrs = {k: a for k, (a, _) in host.items()}
+            tags = {k: tag for k, (_, tag) in host.items() if tag is not None}
+            if tags:
+                arrs[_TENSORS] = np.frombuffer(json.dumps(tags).encode(), dtype=np.uint8)
+            np.savez(buf, **arrs)
             return buf.getvalue()
     blob = pickle.dumps(v, protocol=pickle.HIGHEST_PROTOCOL)
     np.savez(buf, __pickled__=np.frombuffer(blob, dtype=np.uint8))
     return buf.getvalue()
+
+
+def _deserialise(payload: bytes) -> Any:
+    """The inverse of :func:`_serialise`. Raises on a payload that does
+    not parse (the caller treats that as corruption)."""
+    with np.load(io.BytesIO(payload)) as z:
+        if "__pickled__" in z:
+            return pickle.loads(z["__pickled__"].tobytes())
+        tags = json.loads(z[_TENSORS].tobytes()) if _TENSORS in z.files else {}
+
+        def get(k: str) -> Any:
+            return tensor_from_host(z[k], *tags[k]) if k in tags else z[k]
+
+        if "__value__" in z:
+            return get("__value__")
+        return {k: get(k) for k in z.files if k != _TENSORS}
 
 
 def _pack_entry(payload: bytes) -> bytes:
@@ -485,12 +527,7 @@ class HierarchicalStore:
             else:
                 payload = data  # legacy entry: parse failure == corrupt
             try:
-                with np.load(io.BytesIO(payload)) as z:
-                    if "__pickled__" in z:
-                        return "ok", pickle.loads(z["__pickled__"].tobytes())
-                    if "__value__" in z:
-                        return "ok", z["__value__"]
-                    return "ok", {k: z[k] for k in z.files}
+                return "ok", _deserialise(payload)
             except Exception:  # noqa: BLE001 — parse failure is corruption
                 if self._maybe_quarantine(path):
                     return "corrupt", None

@@ -83,6 +83,9 @@ import traceback
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
+
+from repro_torch.runtime.tensors import tensor_from_host, tensor_to_host
 
 __all__ = [
     "Lease",
@@ -535,8 +538,17 @@ def _shm_template(value: Any, arrays: List[np.ndarray]) -> Tuple:
     None/bool/int/float/str/bytes scalars, list/tuple/dict containers
     (primitive keys), and array-likes with non-object, round-trippable
     dtypes."""
+    tag: Optional[Tuple[str, str]] = None
     if isinstance(value, np.ndarray):
         a = value
+    elif isinstance(value, torch.Tensor):
+        # from the host (bf16 as its 16-bit view), rebuilt as a tensor of
+        # this dtype on this device type
+        try:
+            a, dtype, device = tensor_to_host(value)
+        except TypeError:
+            raise _NotShmEncodable from None
+        tag = (dtype, device)
     elif value is None or isinstance(value, (bool, int, float, complex, str, bytes)):
         # note: np.float64 IS a float subclass — it rides the template
         # verbatim (pickled exactly), which round-trips bit-identically
@@ -562,6 +574,8 @@ def _shm_template(value: Any, arrays: List[np.ndarray]) -> Tuple:
     if c.shape != a.shape:
         c = c.reshape(a.shape)  # ascontiguousarray promotes 0-d to (1,)
     arrays.append(c)
+    if tag is not None:
+        return ("T", len(arrays) - 1, *tag)
     return ("a", len(arrays) - 1)
 
 
@@ -571,6 +585,8 @@ def _shm_rebuild(node: Tuple, arrays: List[np.ndarray]) -> Any:
         return node[1]
     if tag == "a":
         return arrays[node[1]]
+    if tag == "T":
+        return tensor_from_host(arrays[node[1]], node[2], node[3])
     if tag == "d":
         return {k: _shm_rebuild(v, arrays) for k, v in node[1]}
     if tag == "t":
