@@ -7,8 +7,8 @@ Usage, from the root of a checkout, on a machine with one CUDA card:
 
 Phases, each printed on its own lines; any failure raises and exits non-zero:
 
-1. device: the card's name and power limit, TF32 off; both kernels start
-   building (one ``nvcc`` each, in parallel);
+1. device: the card's name and power limit, TF32 off; the three kernels
+   start building (one ``nvcc`` each, in parallel);
 2. build: the ``morph_recon`` CUDA kernel from the checkout's source;
 3. kernel vs its plain PyTorch version on the card, ``torch.equal``, on
    random cases and on the real Seg2 and fill-holes inputs of the 4096²
@@ -24,10 +24,22 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
 8. the SA-serve study, ``repro_torch.core.sa_serve.run_sa_serve``, on RWKV-6
    1.6B at full width: 3 prompts of 1024 tokens × 12 decoding settings ×
    3 thresholds, counting kernel launches;
-9. the same serve study code on card and CPU on the reduced RWKV-6.
+9. the same serve study code on card and CPU on the reduced RWKV-6;
+10. build: the ``flash_attention`` CUDA kernel;
+11. ``flash_attention`` vs its plain versions on the card in fp32, on the
+    cases of tests/test_kernel_flash_attention.py, then at the prefill's
+    real shape and types (the shared block's first application in Zamba2
+    2.7B), with the kernel's time, bound, the plain time and the time of
+    PyTorch's ``scaled_dot_product_attention`` on the same tensors;
+12. the SA-serve study on Zamba2 2.7B at full width: 3 prompts of 4096
+    tokens × 12 decoding settings × 3 thresholds, counting both kernels'
+    launches;
+13. the same serve study code on card and CPU on the reduced Zamba2.
 
-The last three lines are the kernels JSON, the ``nvidia-smi`` name and power
-limit, and ``{"ok": true, "device": {...}}``.
+Phase 7 also holds ``ssm_scan`` at Mamba2's real shape (layer 0 of the
+Zamba2 prefill: a per-head decay). The last three lines are the kernels
+JSON, the ``nvidia-smi`` name and power limit, and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -38,6 +50,7 @@ import dataclasses
 import functools
 import itertools
 import json
+import math
 import pathlib
 import subprocess
 import sys
@@ -49,11 +62,14 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores, same sheet
+BF16_OPS_PER_S = 989.4e12  # H100 SXM bf16 tensor cores, dense, same sheet
+SFU_OPS_PER_S = 132 * 16 * 1.98e9  # 16 MUFU ops a clock and SM (compute capability 9.0), boost clock
 SIZE = 4096
 SUB = 512  # the tile is an 8×8 mosaic of SUB² synthetic tiles
 MOAT_RUNS = 16  # the whole 15-parameter trajectory: 16 runs
 ARCH = "rwkv6_1p6b"
 PROMPTS, PROMPT_LEN, GEN_LEN = 3, 1024, 16
+ZAMBA, Z_PROMPT_LEN = "zamba2_2p7b", 4096
 PENALTIES, TOP_KS = (1.0, 1.3), (4, 16)
 # (B, S, H, N, P, chunk) and (S, chunk, per_channel, seed): the cases of
 # tests/test_kernel_ssm_scan.py and tests/test_torch_ssm_scan.py
@@ -61,6 +77,12 @@ SCAN_SHAPES = [(1, 16, 1, 4, 4, 8), (2, 32, 2, 8, 16, 8), (1, 33, 1, 8, 8, 16),
                (1, 64, 3, 16, 32, 64)]
 SCAN_SWEEP = [(4, 4, False, 0), (17, 8, True, 11), (33, 32, False, 5), (50, 16, True, 123),
               (64, 4, True, 7), (70, 32, True, 999), (9, 16, False, 42)]
+# (b, s, h, kv, d), windows, and (s, h, window, seed): the cases of
+# tests/test_kernel_flash_attention.py and tests/test_torch_flash_attention.py
+FA_CAUSAL = [(1, 64, 2, 2, 32), (2, 128, 4, 2, 32), (1, 96, 4, 1, 16), (1, 80, 2, 2, 64)]
+FA_WINDOWS = [8, 32, 100]
+FA_PROPERTY = [(8, 1, None, 0), (17, 2, 4, 11), (33, 4, 64, 5), (50, 1, 16, 100),
+               (64, 2, None, 7), (80, 4, 9, 99), (23, 2, 23, 42), (71, 1, 5, 3)]
 
 
 def check(ok: bool, what: str) -> None:
@@ -76,12 +98,18 @@ def recon_bound_ms(numel: int, conn: int) -> float:
     return max(12 * numel / HBM_BYTES_PER_S, (conn + 1) * numel / FP32_OPS_PER_S) * 1e3
 
 
+def stored_bytes(t: torch.Tensor) -> int:
+    """Bytes of the distinct elements a tensor reads: a dim broadcast with
+    a zero stride (Mamba2's c over the heads) is read once."""
+    return t.element_size() * math.prod(n for n, st in zip(t.shape, t.stride()) if st != 0)
+
+
 def scan_bound(x, a, b, c, y, hf):
     """Least time for one scan on this card, and what bounds it: each input
     read once and each output written once over the memory rate, against
     the recurrence's 5·N·P flops a token and head (decay, input and
     readout products and sums) over the fp32 rate."""
-    nbytes = sum(t.numel() * t.element_size() for t in (x, a, b, c, y, hf))
+    nbytes = sum(stored_bytes(t) for t in (x, a, b, c, y, hf))
     bsz, s, h, p = x.shape
     ops = 5 * bsz * s * h * b.shape[-1] * p
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
@@ -107,6 +135,54 @@ def strong_decay_case():
     return [torch.from_numpy(v).cuda() for v in (x, a, bb, c)]
 
 
+def scan_real_shape(real, reps, plain_reps):
+    """``ssm_scan`` at a prefill's real shape and types against the chunked
+    plain version: y within one bf16 rounding of fp32 sums that agree to
+    1e-4 of the largest y; h_final, fp32, to the kernel's bar relative to
+    the largest state value. Returns (kernel ms, plain ms, bound ms, what
+    bounds it)."""
+    from repro_torch.kernels import ref as kref, ssm_scan
+
+    y, hf = ssm_scan.ssm_scan_cuda(*real)
+    torch.cuda.synchronize()
+    yp, hp = kref.ssm_scan_chunked(*real)
+    ymax, hmax = float(yp.float().abs().max()), float(hp.abs().max())
+    check(torch.allclose(y.float(), yp.float(), rtol=2 ** -7, atol=1e-4 * ymax),
+          "real-shape y within one bf16 rounding of the plain version")
+    check(torch.allclose(hf, hp, rtol=2e-4, atol=2e-4 * max(1.0, hmax)),
+          "real-shape h_final within 2e-4 of the plain version")
+    print(f"real shape: y max abs err {float((y.float() - yp.float()).abs().max())} "
+          f"(max |y| {ymax}); h_final max abs err {float((hf - hp).abs().max())} "
+          f"(max |h| {hmax})")
+    ms = cuda_ms(lambda: ssm_scan.ssm_scan_cuda(*real), reps)
+    plain_ms = cuda_ms(lambda: kref.ssm_scan_chunked(*real), plain_reps)
+    bound_ms, bound_by = scan_bound(*real, y, hf)
+    print(f"real shape: kernel {ms:.4f} ms, plain (chunked) {plain_ms:.4f} ms, "
+          f"bound {bound_ms:.4f} ms ({bound_by}); {ms / bound_ms:.1f}x bound")
+    return ms, plain_ms, bound_ms, bound_by
+
+
+def attn_bound(q, k, v, out):
+    """Least time for causal attention on this card, and what bounds it:
+    q, k, v read and the output written once over the memory rate, against
+    4·D flops a head for each (query, key) pair the mask keeps (the two
+    products) over the bf16 tensor rate. Also the exponentials: one a kept
+    pair and head."""
+    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, out))
+    _, sq, h, d = q.shape
+    pairs = q.shape[0] * sq * (sq + 1) // 2  # causal, Sq == Sk
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 4 * h * d * pairs / BF16_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations",
+            nbytes, 4 * h * d * pairs, h * pairs)
+
+
+def qkv_case(b, sq, sk, h, kv, d, seed):
+    """The inputs of tests/test_kernel_flash_attention.py, on the card."""
+    rng = np.random.default_rng(seed)
+    shapes = ((b, sq, h, d), (b, sk, kv, d), (b, sk, kv, d))
+    return [torch.from_numpy(rng.normal(0, 1, sh).astype(np.float32)).cuda() for sh in shapes]
+
+
 def serve_grid(n_prompts, thresholds):
     return [
         tuple(sorted({"prompt_id": p, "rep_penalty": rp, "top_k": k, "threshold": th}.items()))
@@ -118,6 +194,144 @@ def to_device(tree, dev):
     if isinstance(tree, dict):
         return {k: to_device(v, dev) for k, v in tree.items()}
     return tree.to(dev)
+
+
+def flat(tree, prefix=""):
+    """The leaves of a nested dict of tensors, by dotted name."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flat(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def serve_study(cfg, params, prompts, *, cache_bytes, expected, launches, silent, sa_serve):
+    """Phases 8 and 12: the 36-set SA-serve study through ``run_sa_serve``
+    on the card, thresholds from a pilot generation, every task timed
+    between syncs. ``expected``: the JAX planner's counts; ``launches``:
+    {kernel: (its LaunchCount, launches the study must make)}, counted from
+    0 just before the study; ``silent``: {kernel: LaunchCount} that must
+    stay at 0. Returns the study's result with the counts under
+    ``"launches"``."""
+    max_len = next(iter(prompts.values())).shape[1] + GEN_LEN
+    pilot = sa_serve.build_serve_stage(cfg, params, prompts, gen_len=GEN_LEN, max_len=max_len)
+    cache_b = pilot.tasks[0].output_bytes
+    check(cache_b == cache_bytes, f"cache bytes {cache_b} == {cache_bytes:,}")
+    # thresholds inside the confidences this model produces: quartiles of a
+    # pilot generation (at random init a token's confidence is near 1/vocab)
+    pstate = pilot.tasks[0].fn({}, prompt_id=0)
+    conf = torch.cat([pilot.tasks[1].fn(pstate, rep_penalty=rp, top_k=TOP_KS[0])["conf"].ravel()
+                      for rp in PENALTIES]).cpu().numpy()
+    thresholds = [float(q) for q in np.quantile(conf, [0.25, 0.5, 0.75])]
+    print(f"pilot confidences: min {conf.min():.6g}, max {conf.max():.6g}; "
+          f"thresholds {[f'{t:.6g}' for t in thresholds]}")
+    del pstate
+    sets = serve_grid(len(prompts), thresholds)
+    budget = 3 * cache_b
+    task_s = collections.Counter()
+    task_n = collections.Counter()
+
+    def timed_task(name, fn):
+        @functools.wraps(fn)
+        def run(state, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(state, **kw)
+            torch.cuda.synchronize()
+            task_s[name] += time.perf_counter() - t
+            task_n[name] += 1
+            return out
+        return run
+
+    build_stage = sa_serve.build_serve_stage
+
+    def timed_stage(*a, **kw):
+        stage = build_stage(*a, **kw)
+        return dataclasses.replace(stage, tasks=tuple(
+            dataclasses.replace(t, fn=timed_task(t.name, t.fn)) for t in stage.tasks))
+
+    sa_serve.build_serve_stage = timed_stage
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for counter in [c for c, _ in launches.values()] + list(silent.values()):
+        counter.reset()
+    t0 = time.perf_counter()
+    try:
+        out = sa_serve.run_sa_serve(cfg, params, prompts, sets, gen_len=GEN_LEN, max_len=max_len,
+                                    hbm_budget_bytes=budget, policy="rmsr")
+        torch.cuda.synchronize()
+    finally:
+        sa_serve.build_serve_stage = build_stage
+    wall = time.perf_counter() - t0
+    counts = {name: c.value for name, (c, _) in launches.items()}
+    print(f"sets {len(sets)} ({len(prompts)} prompts x rep_penalty {PENALTIES} x top_k {TOP_KS} "
+          f"x 3 thresholds); hbm_budget_bytes {budget}")
+    print(f"wall {wall:.3f} s; tasks_total {out['tasks_total']}; planned tasks_executed "
+          f"{out['planned_tasks_executed']}; measured tasks_executed {out['tasks_executed']}; "
+          f"reuse_fraction {out['reuse_fraction']}; active_paths {out['active_paths']}; "
+          f"peak_bytes {out['peak_bytes']}; cache_hits {out['cache_hits']}")
+    for key, want in expected.items():
+        check(out[key] == want, f"{key} {out[key]} == {want} (the JAX planner's count)")
+    for name, (_, want) in launches.items():
+        check(counts[name] == want, f"{name} launches {counts[name]} == {want}")
+    for name, counter in silent.items():
+        check(counter.value == 0, f"no {name} launch in the serve study")
+    rates = out["accept_rate"]
+    check(len(rates) == len(sets) and all(0.0 <= r <= 1.0 for r in rates.values()),
+          "an accept rate in [0, 1] for every set")
+    check(len(set(rates.values())) > 1, "accept rates differ across the grid")
+    gen_tokens = task_n["generate"] * GEN_LEN
+    print("launches in the study: " + ", ".join(f"{k} {v}" for k, v in counts.items()))
+    print(f"generated tokens {gen_tokens}: {gen_tokens / task_s['generate']:.3f} tokens/s over "
+          f"the generate tasks, {gen_tokens / wall:.3f} tokens/s over the wall")
+    print(f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    print("per-task seconds (each timed between syncs):")
+    for name in task_s:
+        print(f"  {name}: {task_n[name]} tasks, {task_s[name]:.3f} s")
+    print("accept rates " + " ".join(f"{rates[i]:.4f}" for i in range(len(sets))))
+    # reuse changes no result: set 0 run on its own through the stage's tasks
+    state, d = {}, dict(sets[0])
+    for t in pilot.tasks:
+        state = t.fn(state, **{k: d[k] for k in t.param_names})
+    check(float(state["accept_rate"]) == rates[0], "set 0 alone == set 0 in the merged study")
+    print(f"set 0 on its own: accept rate {float(state['accept_rate'])} (equal)")
+    out["launches"] = counts
+    return out
+
+
+def card_vs_cpu(rcfg, sa_serve, init_params, prefill):
+    """Phases 9 and 13: the same serve study code and prefill on the card
+    and on the CPU, on a reduced model with the same parameters."""
+    cpu_params = init_params(rcfg, 0, device="cpu")
+    card_params = to_device(cpu_params, "cuda:0")
+    rng = np.random.default_rng(1)
+    rprompts = {pid: rng.integers(0, rcfg.vocab_size, (1, 16)).astype(np.int32) for pid in range(2)}
+    rsets = serve_grid(2, thresholds=(3.7e-3, 4.0e-3))
+    kw = dict(gen_len=4, max_len=20)
+    card = sa_serve.run_sa_serve(rcfg, card_params, rprompts, rsets, **kw)
+    cpu = sa_serve.run_sa_serve(rcfg, cpu_params, rprompts, rsets, **kw)
+    for key in ("tasks_total", "tasks_executed", "planned_tasks_executed", "peak_bytes"):
+        check(card[key] == cpu[key], f"{key}: card {card[key]} == cpu {cpu[key]}")
+    toks = {"tokens": torch.from_numpy(rprompts[0])}
+    lc, cc, _ = prefill(rcfg, card_params, toks, max_len=20)
+    lp, cp, _ = prefill(rcfg, cpu_params, toks, max_len=20)
+    logit_err = float((lc.cpu() - lp).abs().max())
+    fc, fp = flat(cc), flat(cp)
+    rel = {k: float((fc[k].cpu().float() - fp[k].float()).norm() / fp[k].float().norm())
+           for k in fp}
+    # bf16: cuBLAS and the CPU round some products to the other neighbour,
+    # and random weights amplify that over the layers (as between the port
+    # and the JAX package on the CPU, tests/test_torch_models.py)
+    check(logit_err <= 0.05, f"prefill logits card vs CPU: max abs diff {logit_err} <= 0.05")
+    for k, r in rel.items():
+        check(r <= 0.03, f"cached {k} card vs CPU: relative difference {r} <= 0.03")
+    differ = sum(card["accept_rate"][i] != cpu["accept_rate"][i] for i in range(len(rsets)))
+    print(f"tasks equal ({card['tasks_total']}/{card['tasks_executed']}); prefill logits max abs "
+          f"diff {logit_err}; cache relative diff "
+          + ", ".join(f"{k} {r}" for k, r in rel.items())
+          + f"; accept rates differ in {differ} of {len(rsets)} sets")
 
 
 def phase(name: str) -> None:
@@ -174,10 +388,10 @@ def main() -> int:
     from repro_torch import configs
     from repro_torch.app import pipeline
     from repro_torch.core import halton_sequence, morris_trajectories, sa_serve
-    from repro_torch.kernels import morph_recon, nvcc, ssm_scan
+    from repro_torch.kernels import flash_attention, morph_recon, nvcc, ssm_scan
     from repro_torch.kernels import ref as kref
     from repro_torch.models import init_params, prefill
-    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.models import model as model_mod, ssm as ssm_mod
     from repro_torch.models.layers import rms_norm
 
     # -- 1. device --------------------------------------------------------
@@ -193,18 +407,19 @@ def main() -> int:
     print("tf32: matmul off, cudnn off")
     # one nvcc for each kernel source, started together
     t_build = time.perf_counter()
-    build_pool = concurrent.futures.ThreadPoolExecutor(max_workers=2)
+    build_pool = concurrent.futures.ThreadPoolExecutor(max_workers=3)
     builds = {"morph_recon": build_pool.submit(morph_recon.build),
-              "ssm_scan": build_pool.submit(ssm_scan.build)}
+              "ssm_scan": build_pool.submit(ssm_scan.build),
+              "flash_attention": build_pool.submit(flash_attention.build)}
     build_pool.shutdown(wait=False)
 
     def show_build(name):
         build = builds[name].result()
         print(f"{name}: nvcc {' '.join(nvcc.NVCC_FLAGS)}")
         print(f"build seconds: {build.seconds if build.seconds is not None else 'cached'} "
-              f"(both builds started {time.perf_counter() - t_build:.3f} s ago)")
+              f"(the builds started {time.perf_counter() - t_build:.3f} s ago)")
         for ln in build.ptxas_info.splitlines():
-            if "registers" in ln or "Compiling entry" in ln or "smem" in ln:
+            if any(w in ln for w in ("registers", "Compiling entry", "smem", "spill")):
                 print(ln.strip())
 
     # -- 2. build ---------------------------------------------------------
@@ -377,141 +592,143 @@ def main() -> int:
     real = (v, w, k, r)  # x, a, b, c as rwkv6_block passes them
     print("real shape: x/b/c " + ", ".join(f"{tuple(t.shape)} {t.dtype}" for t in (v, k, r))
           + f"; a {tuple(w.shape)} {w.dtype}")
-    y, hf = ssm_scan.ssm_scan_cuda(*real)
+    scan_ms, scan_plain_ms, scan_bound_ms, scan_bound_by = scan_real_shape(real, 50, 5)
+    del real, r, k, v, w, xe, xa, layer0  # layer0's views hold every RWKV-6 layer
+
+    # Mamba2's real shape: layer 0 of the Zamba2 2.7B prefill of prompt 0
+    zcfg = configs.get_config(ZAMBA)
+    zn_blocks = zcfg.num_layers // zcfg.attn_every
+    rng = np.random.default_rng(0)
+    zprompts = {pid: rng.integers(0, zcfg.vocab_size, (1, Z_PROMPT_LEN)).astype(np.int32)
+                for pid in range(PROMPTS)}
+    t0 = time.perf_counter()
+    zparams = init_params(zcfg, 0)  # seeded: phase 11 draws the same again
     torch.cuda.synchronize()
-    yp, hp = kref.ssm_scan_chunked(*real)
-    ymax, hmax = float(yp.float().abs().max()), float(hp.abs().max())
-    # y: one bf16 rounding of fp32 sums that agree to 1e-4 of the largest y;
-    # h_final: fp32, the kernel's bar relative to the largest state value
-    check(torch.allclose(y.float(), yp.float(), rtol=2 ** -7, atol=1e-4 * ymax),
-          "real-shape y within one bf16 rounding of the plain version")
-    check(torch.allclose(hf, hp, rtol=2e-4, atol=2e-4 * max(1.0, hmax)),
-          "real-shape h_final within 2e-4 of the plain version")
-    real_err = (float((y.float() - yp.float()).abs().max()), float((hf - hp).abs().max()))
-    print(f"real shape: y max abs err {real_err[0]} (max |y| {ymax}); "
-          f"h_final max abs err {real_err[1]} (max |h| {hmax})")
-    scan_ms = cuda_ms(lambda: ssm_scan.ssm_scan_cuda(*real), 50)
-    scan_plain_ms = cuda_ms(lambda: kref.ssm_scan_chunked(*real), 5)
-    scan_bound_ms, scan_bound_by = scan_bound(*real, y, hf)
-    print(f"real shape: kernel {scan_ms:.4f} ms, plain (chunked) {scan_plain_ms:.4f} ms, "
-          f"bound {scan_bound_ms:.4f} ms ({scan_bound_by}); {scan_ms / scan_bound_ms:.1f}x bound")
+    print(f"{ZAMBA}: {zcfg.num_layers} Mamba2 layers ({zcfg.ssm_heads} heads of "
+          f"{zcfg.ssm_head_dim}, state {zcfg.ssm_state}), d_model {zcfg.d_model}, one shared "
+          f"attention block ({zcfg.num_heads} heads of {zcfg.head_dim}, d_ff {zcfg.d_ff}) applied "
+          f"{zn_blocks} times, vocab {zcfg.vocab_size}; "
+          f"{sum(t.numel() for t in flat(zparams).values())} parameters held (param_count() "
+          f"{zcfg.param_count()}), seeded on the card in {time.perf_counter() - t0:.3f} s")
+    zx0 = zparams["embed"][torch.from_numpy(zprompts[0]).cuda().long()]
+    p0 = {k_: v_[0, 0] for k_, v_ in zparams["mamba"].items()}
+    real, _, _ = ssm_mod.mamba2_scan_inputs(rms_norm(zx0, p0["ln"], zcfg.norm_eps), p0, zcfg)
+    print("Mamba2 real shape: x/b/c " + ", ".join(f"{tuple(t.shape)} {t.dtype}" for t in
+                                                  (real[0], real[2], real[3]))
+          + f"; a {tuple(real[1].shape)} {real[1].dtype} (per head); c's stride over H "
+          f"{real[3].stride(2)}")
+    m2_ms, m2_plain_ms, m2_bound_ms, m2_bound_by = scan_real_shape(real, 20, 2)
+    print(f"Mamba2 shape: {zcfg.num_layers} launches a prefill, "
+          f"{zcfg.num_layers * m2_ms:.1f} ms of kernel time")
     print("library call: none (no one PyTorch call computes a gated linear recurrence)")
-    del cases, real, y, hf, yp, hp, r, k, v, w, xe, xa
+    del cases, real, p0, zparams, zx0
     torch.cuda.empty_cache()
 
     # -- 8. the SA-serve study at full width -------------------------------
     phase(f"8 SA-serve study: run_sa_serve on {ARCH} at full width")
-    max_len = PROMPT_LEN + GEN_LEN
-    pilot = sa_serve.build_serve_stage(cfg, params, prompts, gen_len=GEN_LEN, max_len=max_len)
-    cache_b = pilot.tasks[0].output_bytes
-    check(cache_b == 12_779_520, f"cache bytes {cache_b} == 12,779,520")
-    # thresholds inside the confidences this model produces: quartiles of a
-    # pilot generation (at random init a token's confidence is near 1/vocab)
-    pstate = pilot.tasks[0].fn({}, prompt_id=0)
-    conf = torch.cat([pilot.tasks[1].fn(pstate, rep_penalty=rp, top_k=TOP_KS[0])["conf"].ravel()
-                      for rp in PENALTIES]).cpu().numpy()
-    thresholds = [float(q) for q in np.quantile(conf, [0.25, 0.5, 0.75])]
-    print(f"pilot confidences: min {conf.min():.6g}, max {conf.max():.6g}; "
-          f"thresholds {[f'{t:.6g}' for t in thresholds]}")
-    del pstate
-    sets = serve_grid(PROMPTS, thresholds)
-    budget = 3 * cache_b
-    task_s = collections.Counter()
-    task_n = collections.Counter()
-
-    def timed_task(name, fn):
-        @functools.wraps(fn)
-        def run(state, **kw):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = fn(state, **kw)
-            torch.cuda.synchronize()
-            task_s[name] += time.perf_counter() - t
-            task_n[name] += 1
-            return out
-        return run
-
-    build_stage = sa_serve.build_serve_stage
-
-    def timed_stage(*a, **kw):
-        stage = build_stage(*a, **kw)
-        return dataclasses.replace(stage, tasks=tuple(
-            dataclasses.replace(t, fn=timed_task(t.name, t.fn)) for t in stage.tasks))
-
-    sa_serve.build_serve_stage = timed_stage
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    ssm_scan.LAUNCHES.reset()
-    morph_recon.LAUNCHES.reset()
-    t0 = time.perf_counter()
-    out = sa_serve.run_sa_serve(cfg, params, prompts, sets, gen_len=GEN_LEN, max_len=max_len,
-                                hbm_budget_bytes=budget, policy="rmsr")
-    torch.cuda.synchronize()
-    serve_wall = time.perf_counter() - t0
-    serve_launches = ssm_scan.LAUNCHES.value
-    sa_serve.build_serve_stage = build_stage
-    print(f"sets {len(sets)} (3 prompts x rep_penalty {PENALTIES} x top_k {TOP_KS} x 3 thresholds); "
-          f"hbm_budget_bytes {budget}")
-    print(f"wall {serve_wall:.3f} s; tasks_total {out['tasks_total']}; planned tasks_executed "
-          f"{out['planned_tasks_executed']}; measured tasks_executed {out['tasks_executed']}; "
-          f"reuse_fraction {out['reuse_fraction']}; active_paths {out['active_paths']}; "
-          f"peak_bytes {out['peak_bytes']}; cache_hits {out['cache_hits']}")
-    expected = {"tasks_total": 108, "planned_tasks_executed": 51, "tasks_executed": 51,
-                "reuse_fraction": 57 / 108, "active_paths": 2, "peak_bytes": 28_754_048}
-    for key, want in expected.items():
-        check(out[key] == want, f"{key} {out[key]} == {want} (the JAX planner's count)")
-    check(serve_launches == cfg.num_layers * PROMPTS,
-          f"ssm_scan launches {serve_launches} == {cfg.num_layers} x {PROMPTS}")
-    check(morph_recon.LAUNCHES.value == 0, "no morph_recon launch in the serve study")
-    rates = out["accept_rate"]
-    check(len(rates) == len(sets) and all(0.0 <= r <= 1.0 for r in rates.values()),
-          "an accept rate in [0, 1] for every set")
-    check(len(set(rates.values())) > 1, "accept rates differ across the grid")
-    gen_tokens = task_n["generate"] * GEN_LEN
-    print(f"ssm_scan launches in the study: {serve_launches}")
-    print(f"generated tokens {gen_tokens}: {gen_tokens / task_s['generate']:.3f} tokens/s over "
-          f"the generate tasks, {gen_tokens / serve_wall:.3f} tokens/s over the wall")
-    print(f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    print("per-task seconds (each timed between syncs):")
-    for name in task_s:
-        print(f"  {name}: {task_n[name]} tasks, {task_s[name]:.3f} s")
-    print("accept rates " + " ".join(f"{rates[i]:.4f}" for i in range(len(sets))))
-    # reuse changes no result: set 0 run on its own through the stage's tasks
-    state, d = {}, dict(sets[0])
-    for t in pilot.tasks:
-        state = t.fn(state, **{k: d[k] for k in t.param_names})
-    check(float(state["accept_rate"]) == rates[0], "set 0 alone == set 0 in the merged study")
-    print(f"set 0 on its own: accept rate {float(state['accept_rate'])} (equal)")
-    del state, pilot, params
+    launches = {}
+    out = serve_study(cfg, params, prompts, cache_bytes=12_779_520,
+                      expected={"tasks_total": 108, "planned_tasks_executed": 51,
+                                "tasks_executed": 51, "reuse_fraction": 57 / 108,
+                                "active_paths": 2, "peak_bytes": 28_754_048},
+                      launches={"ssm_scan": (ssm_scan.LAUNCHES, cfg.num_layers * PROMPTS)},
+                      silent={"morph_recon": morph_recon.LAUNCHES,
+                              "flash_attention": flash_attention.LAUNCHES},
+                      sa_serve=sa_serve)
+    launches["rwkv6_serve"] = out["launches"]["ssm_scan"]
+    del params
     torch.cuda.empty_cache()
 
     # -- 9. card vs CPU, reduced RWKV-6 -----------------------------------
     phase("9 card vs CPU, reduced RWKV-6")
-    rcfg = configs.reduced_config(cfg)
-    cpu_params = init_params(rcfg, 0, device="cpu")
-    card_params = to_device(cpu_params, "cuda:0")
-    rng = np.random.default_rng(1)
-    rprompts = {pid: rng.integers(0, rcfg.vocab_size, (1, 16)).astype(np.int32) for pid in range(2)}
-    rsets = serve_grid(2, thresholds=(3.7e-3, 4.0e-3))
-    kw = dict(gen_len=4, max_len=20)
-    card = sa_serve.run_sa_serve(rcfg, card_params, rprompts, rsets, **kw)
-    cpu = sa_serve.run_sa_serve(rcfg, cpu_params, rprompts, rsets, **kw)
-    for key in ("tasks_total", "tasks_executed", "planned_tasks_executed", "peak_bytes"):
-        check(card[key] == cpu[key], f"{key}: card {card[key]} == cpu {cpu[key]}")
-    toks = {"tokens": torch.from_numpy(rprompts[0])}
-    lc, cc, _ = prefill(rcfg, card_params, toks, max_len=20)
-    lp, cp, _ = prefill(rcfg, cpu_params, toks, max_len=20)
-    logit_err = float((lc.cpu() - lp).abs().max())
-    state_rel = float((cc["state"].cpu() - cp["state"]).norm() / cp["state"].norm())
-    # bf16: cuBLAS and the CPU round some products to the other neighbour,
-    # and random weights amplify that over the layers (as between the port
-    # and the JAX package on the CPU, tests/test_torch_models.py)
-    check(logit_err <= 0.05, f"prefill logits card vs CPU: max abs diff {logit_err} <= 0.05")
-    check(state_rel <= 0.03, f"h_final card vs CPU: relative difference {state_rel} <= 0.03")
-    differ = sum(card["accept_rate"][i] != cpu["accept_rate"][i] for i in range(len(rsets)))
-    print(f"tasks equal ({card['tasks_total']}/{card['tasks_executed']}); prefill logits max abs "
-          f"diff {logit_err}; h_final relative diff {state_rel}; accept rates differ in "
-          f"{differ} of {len(rsets)} sets")
+    card_vs_cpu(configs.reduced_config(cfg), sa_serve, init_params, prefill)
+
+    # -- 10. build flash_attention -----------------------------------------
+    phase("10 build")
+    show_build("flash_attention")
+    print(f"dynamic shared memory a block at D = {zcfg.head_dim}: "
+          f"{flash_attention.shared_memory_bytes(zcfg.head_dim)} bytes")
+
+    # -- 11. flash_attention vs its plain versions -------------------------
+    phase("11 flash_attention vs plain versions (fp32 inputs, rtol = atol = 2e-5)")
+    cases = [(f"causal {c}", qkv_case(c[0], c[1], c[1], *c[2:], seed=c[1] + c[2]), None, 0)
+             for c in FA_CAUSAL]
+    cases += [(f"window {w}", qkv_case(1, 96, 96, 2, 2, 32, seed=w), w, 0) for w in FA_WINDOWS]
+    cases.append(("q_offset 48 (16 queries, 64 keys)", qkv_case(1, 16, 64, 2, 2, 16, seed=9),
+                  None, 48))
+    cases += [(f"property {pc}", qkv_case(1, pc[0], pc[0], pc[1], pc[1], 16, seed=pc[3]), pc[2], 0)
+              for pc in FA_PROPERTY]
+    fa_err = 0.0
+    for name, (q, k, v), window, q_offset in cases:
+        before = flash_attention.LAUNCHES.value
+        got = flash_attention.flash_attention_cuda(q, k, v, window=window, q_offset=q_offset)
+        torch.cuda.synchronize()
+        check(flash_attention.LAUNCHES.value == before + 1, f"one launch for {name}")
+        errs = []
+        for plain, want in (
+            ("attention_ref", kref.attention_ref(q, k, v, window=window)),
+            ("flash_attention_blocked",
+             kref.flash_attention_blocked(q, k, v, window=window, q_offset=q_offset)),
+        ):
+            check(torch.allclose(got, want, rtol=2e-5, atol=2e-5),
+                  f"flash_attention within 2e-5 of {plain} on {name}")
+            errs.append(float((got - want).abs().max()))
+        fa_err = max(fa_err, *errs)
+        print(f"{name}: max abs err vs attention_ref {errs[0]:.3g}, vs blocked {errs[1]:.3g}")
+    print(f"max_abs_err {fa_err}")
+    del cases
+
+    # the shared block's first application in the prefill of prompt 0
+    zparams = init_params(zcfg, 0)
+    x = zparams["embed"][torch.from_numpy(zprompts[0]).cuda().long()]
+    positions = torch.arange(Z_PROMPT_LEN, device=x.device)[None]
+    for j in range(zcfg.attn_every):
+        p = {k_: v_[0, j] for k_, v_ in zparams["mamba"].items()}
+        x = x + ssm_mod.mamba2_block(rms_norm(x, p["ln"], zcfg.norm_eps), p, zcfg)
+    real = model_mod._attn_qkv(x, zparams["shared_attn"], zcfg, positions)
+    print("real shape: q/k/v " + ", ".join(f"{tuple(t.shape)} {t.dtype}" for t in real))
+    got = flash_attention.flash_attention_cuda(*real)
+    torch.cuda.synchronize()
+    want = kref.flash_attention_blocked(*real)
+    omax = float(want.float().abs().max())
+    # one bf16 rounding of fp32 results that agree to 1e-4 of the largest
+    check(torch.allclose(got.float(), want.float(), rtol=2 ** -7, atol=1e-4 * omax),
+          "real-shape output within one bf16 rounding of the blocked plain version")
+    fa_real_err = float((got.float() - want.float()).abs().max())
+    print(f"real shape: max abs err {fa_real_err} (max |out| {omax})")
+    fa_ms = cuda_ms(lambda: flash_attention.flash_attention_cuda(*real), 20)
+    fa_plain_ms = cuda_ms(lambda: kref.flash_attention_blocked(*real), 2)
+    qt, kt, vt = (t.transpose(1, 2) for t in real)
+    sdpa = functools.partial(torch.nn.functional.scaled_dot_product_attention, qt, kt, vt,
+                             is_causal=True)
+    sdpa_err = float((sdpa().transpose(1, 2).float() - want.float()).abs().max())
+    fa_lib_ms = cuda_ms(sdpa, 20)
+    fa_bound_ms, fa_bound_by, fa_bytes, fa_flops, fa_exps = attn_bound(*real, got)
+    print(f"real shape: kernel {fa_ms:.4f} ms, plain (blocked) {fa_plain_ms:.4f} ms, "
+          f"library call (scaled_dot_product_attention, is_causal) {fa_lib_ms:.4f} ms "
+          f"(max abs diff {sdpa_err}); bound {fa_bound_ms:.4f} ms ({fa_bound_by}: "
+          f"{fa_flops / 1e9:.1f} GFLOP, {fa_bytes / 1e6:.1f} MB); {fa_ms / fa_bound_ms:.1f}x bound")
+    print(f"exponentials: {fa_exps} ({fa_exps * 1e3 / SFU_OPS_PER_S:.4f} ms at one SFU op each)")
+    del real, got, want, x, qt, kt, vt
+    torch.cuda.empty_cache()
+
+    # -- 12. the SA-serve study on Zamba2 at full width ---------------------
+    phase(f"12 SA-serve study: run_sa_serve on {ZAMBA} at full width")
+    out = serve_study(zcfg, zparams, zprompts, cache_bytes=451_399_680,
+                      expected={"tasks_total": 108, "planned_tasks_executed": 51,
+                                "tasks_executed": 51, "reuse_fraction": 57 / 108,
+                                "active_paths": 2, "peak_bytes": 1_015_649_408},
+                      launches={"ssm_scan": (ssm_scan.LAUNCHES, zcfg.num_layers * PROMPTS),
+                                "flash_attention": (flash_attention.LAUNCHES, zn_blocks * PROMPTS)},
+                      silent={"morph_recon": morph_recon.LAUNCHES}, sa_serve=sa_serve)
+    launches["zamba2_serve"] = out["launches"]["ssm_scan"]
+    fa_launches = out["launches"]["flash_attention"]
+    del zparams
+    torch.cuda.empty_cache()
+
+    # -- 13. card vs CPU, reduced Zamba2 -------------------------------------
+    phase("13 card vs CPU, reduced Zamba2")
+    card_vs_cpu(configs.reduced_config(zcfg), sa_serve, init_params, prefill)
 
     # -- results -----------------------------------------------------------
     ms_k, ms_p, bound, _ = timing[(f"seg2 {SIZE}x{SIZE}", int(default["RC"]))]
@@ -532,13 +749,30 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
         "replaces": "src/repro/kernels/ssm_scan.py:32",
-        "launches": serve_launches,
+        "launches": sum(launches.values()),
+        "launches_by_path": launches,
         "max_abs_err": scan_err,
         "ms": scan_ms,
         "plain_ms": scan_plain_ms,
         "bound_ms": scan_bound_ms,
         "bound_by": scan_bound_by,
         "library_ms": None,
+        "mamba2_ms": m2_ms,
+        "mamba2_plain_ms": m2_plain_ms,
+        "mamba2_bound_ms": m2_bound_ms,
+        "mamba2_bound_by": m2_bound_by,
+    }, {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:27",
+        "launches": fa_launches,
+        "max_abs_err": fa_err,
+        "ms": fa_ms,
+        "plain_ms": fa_plain_ms,
+        "bound_ms": fa_bound_ms,
+        "bound_by": fa_bound_by,
+        "library_ms": fa_lib_ms,
     }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -33,10 +33,17 @@ from repro_torch.models import decode_step, init_cache, prefill
 __all__ = ["build_serve_stage", "run_sa_serve"]
 
 
+def _leaves(tree) -> List[torch.Tensor]:
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in _leaves(v)]
+    return [tree]
+
+
 def _cache_bytes(cfg: ModelConfig, batch: int, max_len: int) -> int:
-    """Bytes of one cache, sized on the meta device (no memory)."""
+    """Bytes of every leaf of one (nested) cache, sized on the meta device
+    (no memory)."""
     cache = init_cache(cfg, batch, max_len, device="meta")
-    return sum(t.numel() * t.element_size() for t in cache.values())
+    return sum(t.numel() * t.element_size() for t in _leaves(cache))
 
 
 def build_serve_stage(

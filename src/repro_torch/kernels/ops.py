@@ -11,6 +11,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import flash_attention as flash_kernel
 from repro_torch.kernels import morph_recon, ssm_scan as ssm_scan_kernel
 from repro_torch.kernels import ref as kref
 
@@ -49,6 +50,30 @@ def morph_reconstruct(
         mask.to(torch.float32).contiguous(),
         conn=conn,
     )
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    use_kernel: Optional[bool] = None,
+    block_q: int = 128,
+    block_k: int = 128,
+) -> torch.Tensor:
+    """Causal (and sliding-window) grouped-query attention (see
+    kernels/flash_attention.py).
+
+    The signature is that of ``repro.kernels.ops.flash_attention``: CPU
+    tensors go to the dense ``attention_ref``, as the JAX package's
+    non-kernel path does. ``block_q`` and ``block_k`` size the TPU kernel's
+    blocks; the CUDA kernel fixes its own tiles and does not read them.
+    """
+    if not _on_card(q, use_kernel):
+        return kref.attention_ref(q, k, v, causal=causal, window=window)
+    return flash_kernel.flash_attention_cuda(q, k, v, causal=causal, window=window)
 
 
 def ssm_scan(

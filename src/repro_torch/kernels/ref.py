@@ -1,13 +1,15 @@
 """Plain PyTorch versions of the kernels' functions: the neighbourhood shift,
 dilation, erosion and grayscale reconstruction by dilation (for
-:mod:`repro_torch.kernels.morph_recon` and the application layer), and the
-diagonal-gated linear recurrence (for :mod:`repro_torch.kernels.ssm_scan`).
+:mod:`repro_torch.kernels.morph_recon` and the application layer), the
+diagonal-gated linear recurrence (for :mod:`repro_torch.kernels.ssm_scan`)
+and causal attention (for :mod:`repro_torch.kernels.flash_attention`).
 They are the correctness references for the CUDA kernels. Every function
 here runs on any device.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -22,6 +24,8 @@ __all__ = [
     "ssm_scan_ref",
     "ssm_scan_chunked",
     "ssm_scan_stub",
+    "attention_ref",
+    "flash_attention_blocked",
 ]
 
 
@@ -175,3 +179,95 @@ def ssm_scan_stub(
     hf = b[:, -1, :, :, None] * x[:, -1, :, None, :]
     return y.to(x.dtype), hf.float()
 
+
+# ---------------------------------------------------------------------------
+# Attention (for kernels/flash_attention.py)
+# ---------------------------------------------------------------------------
+
+_NEG = -1e30  # the masked logit of the TPU kernel
+
+
+def attention_ref(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+    causal: bool = True, window: Optional[int] = None, scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Dense attention, the oracle. q (B, Sq, H, D); k, v (B, Sk, KV, D)
+    with H a multiple of KV (query head h reads kv head h // (H/KV)).
+    Queries sit at the end of the keys (``qpos = i + Sk - Sq``); ``window``
+    keeps keys in [qpos - window + 1, qpos]. Masked logits are -inf and a
+    row with no key left is 0. Returns q's dtype."""
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    rep = h // hkv
+    k = k.repeat_interleave(rep, dim=2)
+    v = v.repeat_interleave(rep, dim=2)
+    if scale is None:  # 1 / sqrt(d) in q's dtype, as jnp.sqrt(d).astype(q.dtype)
+        scale = 1.0 / torch.sqrt(torch.tensor(float(d))).to(q.dtype)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
+    qpos = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    m = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        m &= kpos <= qpos
+    if window is not None:
+        m &= kpos > qpos - window
+    logits = logits.masked_fill(~m, float("-inf"))
+    p = torch.softmax(logits, dim=-1)
+    p = torch.nan_to_num(p, nan=0.0)  # rows with every key masked
+    return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
+
+
+def flash_attention_blocked(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+    causal: bool = True, window: Optional[int] = None, q_offset: int = 0,
+    block_q: int = 128, block_k: int = 128,
+) -> torch.Tensor:
+    """The TPU kernel's arithmetic, block by block: fp32 logits of
+    ``q·scale`` and k, masked to -1e30 (``kpos < Sk``; ``kpos <= qpos`` when
+    causal; ``kpos > qpos - window`` with a window; ``qpos = i + q_offset``),
+    a streaming softmax with fp32 running max, sum and accumulator, and
+    ``acc / max(l, 1e-30)`` in q's dtype. A (q-block, k-block) pair that is
+    wholly masked is skipped on the TPU kernel's test.
+
+    A masked logit adds 0 to the sum: that is what ``exp(-1e30 - m)`` gives
+    as soon as the row has one key, and it makes a row with no key 0, as
+    in :func:`attention_ref`, whatever the block size."""
+    b, sq, h, d = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    rep = h // kv
+    bq, bk = min(block_q, sq), min(block_k, sk)
+    scale = 1.0 / math.sqrt(d)
+    qf = q.float().transpose(1, 2) * scale  # (B, H, Sq, D)
+    kf = k.float().repeat_interleave(rep, dim=2).transpose(1, 2)  # (B, H, Sk, D)
+    vf = v.float().repeat_interleave(rep, dim=2).transpose(1, 2)
+    out = torch.empty((b, h, sq, d), dtype=torch.float32, device=q.device)
+    for q_lo in range(0, sq, bq):
+        rows = torch.arange(q_lo, min(q_lo + bq, sq), device=q.device)
+        qpos = (rows + q_offset)[:, None]
+        qb = qf[:, :, rows]
+        m = torch.full((b, h, len(rows), 1), _NEG, dtype=torch.float32, device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((b, h, len(rows), d), dtype=torch.float32, device=q.device)
+        # the TPU kernel's test, with its padded block's last row
+        a_lo, a_hi = q_lo + q_offset, q_lo + q_offset + bq - 1
+        for k_lo in range(0, sk, bk):
+            if causal and k_lo > a_hi:
+                continue
+            if window is not None and k_lo + bk <= a_lo - window + 1:
+                continue
+            kpos = torch.arange(k_lo, min(k_lo + bk, sk), device=q.device)[None, :]
+            mask = torch.ones((len(rows), kpos.shape[1]), dtype=torch.bool, device=q.device)
+            if causal:
+                mask &= kpos <= qpos
+            if window is not None:
+                mask &= kpos > qpos - window
+            logits = qb @ kf[:, :, k_lo : k_lo + bk].transpose(-1, -2)
+            logits = logits.masked_fill(~mask, _NEG)
+            m_new = torch.maximum(m, logits.amax(-1, keepdim=True))
+            p = torch.exp(logits - m_new).masked_fill(~mask, 0.0)
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1, keepdim=True)
+            acc = acc * corr + p @ vf[:, :, k_lo : k_lo + bk]
+            m = m_new
+        out[:, :, rows] = acc / torch.clamp_min(l, 1e-30)
+    return out.transpose(1, 2).to(q.dtype)

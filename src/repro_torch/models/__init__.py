@@ -1,4 +1,4 @@
-"""Model zoo: layer library + models built from a config (RWKV-6 so far)."""
+"""Model zoo: layer library + models built from a config (RWKV-6 and Zamba2 so far)."""
 
 from repro_torch.models.model import (  # noqa: F401
     decode_step,

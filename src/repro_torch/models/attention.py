@@ -1,0 +1,108 @@
+"""Attention for prefill (causal, sliding-window, streaming softmax) and
+decode (one query against the whole cache).
+
+Prefill follows the tensors' device. A CUDA tensor goes to the hand-written
+FlashAttention-2 kernel (:mod:`repro_torch.kernels.flash_attention`): every
+window in the port is a Python int, so every prefill is the static-window
+case that the JAX package sends to its Pallas kernel on the accelerator. A
+CPU tensor runs the JAX package's own streaming softmax over key chunks,
+with its bf16 operands and fp32 sums. Decode is plain PyTorch on either
+device, as the JAX package computes it outside any kernel.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.models.layers import COMPUTE_DTYPE
+
+__all__ = ["blocked_attention", "decode_attention"]
+
+_NEG = -1e30
+
+
+def blocked_attention(
+    q: torch.Tensor,  # (B, Sq, H, D)
+    k: torch.Tensor,  # (B, Sk, KV, D)
+    v: torch.Tensor,  # (B, Sk, KV, D)
+    *,
+    window: int,  # full attention = Sk
+    q_offset: int = 0,  # absolute position of q[0] (prefill continuation)
+    prefix_len: int = 0,  # bidirectional prefix (PaliGemma prefix-LM)
+    chunk: int = 1024,
+) -> torch.Tensor:
+    """Causal (+ sliding-window / prefix-LM) attention with an fp32
+    streaming softmax. On the card: the kernel, which has no prefix-LM
+    mode. On the CPU: the JAX package's arithmetic over key chunks of
+    ``chunk``."""
+    b, sq, h, d = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    if kops._on_card(q, None):
+        if prefix_len:
+            raise NotImplementedError(
+                "prefix_len > 0 (prefix-LM attention) has no kernel; it comes with the vlm slice"
+            )
+        # a window that reaches past every key masks nothing
+        w = None if window >= sk + q_offset else int(window)
+        return flash_attention_cuda(q, k, v, causal=True, window=w, q_offset=q_offset)
+    rep = h // kv
+    chunk = min(chunk, sk)
+    pad = -(-sk // chunk) * chunk - sk
+    k = F.pad(k, (0, 0, 0, 0, 0, pad))
+    v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    scale = 1.0 / (d**0.5)
+    qpos = (torch.arange(sq, device=q.device) + q_offset)[:, None]  # (Sq, 1)
+    # bf16 operands, fp32 products and sums (preferred_element_type=f32)
+    q32 = (q * scale).to(COMPUTE_DTYPE).float().transpose(1, 2)  # (B, H, Sq, D)
+    m = torch.full((b, h, sq), _NEG, dtype=torch.float32, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((b, h, sq, d), dtype=torch.float32, device=q.device)
+    for c0 in range(0, sk + pad, chunk):
+        kb = k[:, c0 : c0 + chunk].repeat_interleave(rep, dim=2)
+        vb = v[:, c0 : c0 + chunk].repeat_interleave(rep, dim=2)
+        kb = kb.to(COMPUTE_DTYPE).float().transpose(1, 2)  # (B, H, chunk, D)
+        vb = vb.to(COMPUTE_DTYPE).float().transpose(1, 2)
+        logits = q32 @ kb.transpose(-1, -2)  # (B, H, Sq, chunk)
+        kpos = torch.arange(c0, c0 + chunk, device=q.device)[None, :]
+        mask = (kpos <= qpos) | (kpos < prefix_len)
+        mask &= kpos > qpos - window
+        mask &= kpos < sk  # key padding
+        logits = logits.masked_fill(~mask, _NEG)
+        m_new = torch.maximum(m, logits.amax(-1))
+        p = torch.exp(logits - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + p.to(COMPUTE_DTYPE).float() @ vb
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.transpose(1, 2).to(q.dtype)  # (B, Sq, H, D)
+
+
+def decode_attention(
+    q: torch.Tensor,  # (B, 1, H, D)
+    k_cache: torch.Tensor,  # (B, S, KV, D)
+    v_cache: torch.Tensor,
+    cur_len: int,  # number of valid cache positions
+    *,
+    window: int,  # full = S
+) -> torch.Tensor:
+    """One-token attention against the full cache, masked to the valid
+    positions within the window."""
+    b, _, h, d = q.shape
+    s, kv = k_cache.shape[1], k_cache.shape[2]
+    rep = h // kv
+    scale = 1.0 / (d**0.5)
+    kpos = torch.arange(s, device=q.device)
+    mask = (kpos < cur_len) & (kpos >= cur_len - window)
+    # group q heads onto their kv head: h = kv * rep
+    qg = (q.reshape(b, 1, kv, rep, d) * scale).to(COMPUTE_DTYPE)
+    lg = torch.einsum(
+        "bqgrd,bkgd->bgrqk", qg.float(), k_cache.to(COMPUTE_DTYPE).float()
+    )  # (B, KV, rep, 1, S)
+    lg = lg.masked_fill(~mask, _NEG)
+    p = torch.softmax(lg, dim=-1).to(COMPUTE_DTYPE)
+    out = torch.einsum("bgrqk,bkgd->bqgrd", p.float(), v_cache.to(COMPUTE_DTYPE).float())
+    return out.to(COMPUTE_DTYPE).reshape(b, 1, h, d).to(q.dtype)

@@ -12,11 +12,21 @@ from __future__ import annotations
 import math
 from typing import Optional, Tuple, Union
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 COMPUTE_DTYPE = torch.bfloat16
 
-__all__ = ["COMPUTE_DTYPE", "rms_norm", "normal_init"]
+__all__ = [
+    "COMPUTE_DTYPE",
+    "rms_norm",
+    "rope_frequencies",
+    "apply_rope",
+    "swiglu",
+    "dense_ffn",
+    "normal_init",
+]
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -24,6 +34,33 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.T
     x32 = x.float()
     var = x32.square().mean(-1, keepdim=True)
     return (x32 * torch.rsqrt(var + eps) * (1.0 + scale.float())).to(dt)
+
+
+def rope_frequencies(head_dim: int, theta: float) -> np.ndarray:
+    return 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float32) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., S, H, D); positions: broadcastable to (..., S)."""
+    d = x.shape[-1]
+    freqs = torch.from_numpy(rope_frequencies(d, theta)).to(x.device)  # (D/2,)
+    angles = positions[..., None].float() * freqs  # (..., S, D/2)
+    cos = torch.cos(angles)[..., None, :]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    return F.silu(gate.float()).to(gate.dtype) * up
+
+
+def dense_ffn(
+    x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor
+) -> torch.Tensor:
+    dt = COMPUTE_DTYPE
+    h = swiglu(x @ w_gate.to(dt), x @ w_up.to(dt))
+    return h @ w_down.to(dt)
 
 
 def normal_init(

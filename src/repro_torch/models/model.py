@@ -1,21 +1,27 @@
 """Models built from a config: parameter init, prefill and decode.
 
-Ported so far: the ``ssm`` family (RWKV-6), whose time mixing runs the
-``ssm_scan`` kernel. The other families raise ``NotImplementedError``:
-``hybrid`` (Zamba2) comes with the Zamba2 slice, and ``dense``, ``moe``,
-``vlm`` and ``audio`` with the attention slices.
+Ported so far:
+  * ``ssm`` (RWKV-6): time mixing runs the ``ssm_scan`` kernel;
+  * ``hybrid`` (Zamba2): 9 super-blocks of 6 Mamba2 layers (``ssm_scan``
+    with a per-head decay), with ONE weight-shared attention+MLP block
+    applied after every super-block; its prefill attention runs the
+    ``flash_attention`` kernel.
+The ``dense``, ``moe``, ``vlm`` and ``audio`` families raise
+``NotImplementedError``: they come with the attention slices.
 
 Parameters are a dict of tensors with the JAX package's keys; per-layer
-weights are stacked on a leading L dim and walked with a Python loop. The
+weights are stacked on leading dims and walked with Python loops. The
 matrices that the JAX package casts to bf16 at every use (the projections,
-the low-rank decay's first factor, the embedding and the LM head) are held
-in bf16 once, as ``launch/steps.cast_for_compute`` does there: the cast is
-deterministic, so the numbers are the same, and decoding does not re-cast
-1.7 B parameters a token. Everything else stays fp32.
+the conv taps, the low-rank decay's first factor, the embedding and the LM
+head) are held in bf16 once, as ``launch/steps.cast_for_compute`` does
+there: the cast is deterministic, so the numbers are the same, and decoding
+does not re-cast billions of parameters a token. Everything else (norms,
+biases, decays, skips) stays fp32.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Mapping, Union
 
 import numpy as np
@@ -24,23 +30,29 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import COMPUTE_DTYPE, normal_init, rms_norm
+from repro_torch.models.attention import blocked_attention, decode_attention
+from repro_torch.models.layers import COMPUTE_DTYPE, apply_rope, dense_ffn, normal_init, rms_norm
 
 __all__ = ["init_params", "params_from_jax", "init_cache", "prefill", "decode_step"]
 
-# held in bf16 (see the module docstring); ``w_lora_b`` is used in fp32
+# held in bf16 (see the module docstring), by leaf name: RWKV-6's, then
+# Zamba2's (no name of one family names an fp32 leaf of the other);
+# ``w_lora_b`` is used in fp32
 BF16_WEIGHTS = frozenset({
     "embed", "lm_head",
     "w_r", "w_k", "w_v", "w_g", "w_lora_a", "w_o", "w_ck", "w_cv", "w_cr",
+    "in_proj", "conv_w", "out_proj", "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
 })
+
+_PORTED = ("ssm", "hybrid")
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family == "ssm":
+    if cfg.family in _PORTED:
         return
-    slice_ = "the Zamba2 slice" if cfg.family == "hybrid" else "the attention slices"
     raise NotImplementedError(
-        f"{cfg.name}: the {cfg.family!r} family is not ported yet; it comes with {slice_}"
+        f"{cfg.name}: the {cfg.family!r} family is not ported yet; it comes with the "
+        "attention slices"
     )
 
 
@@ -87,6 +99,57 @@ def _rwkv_params(gen: torch.Generator, cfg: ModelConfig, layers: int, dev: torch
     }
 
 
+def _attn_params(gen: torch.Generator, cfg: ModelConfig, dev: torch.device):
+    """One attention block's projections (the shared block: no L dim)."""
+    d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+
+    def mat(*s, std=None):
+        return normal_init(gen, s, std, dtype=COMPUTE_DTYPE, device=dev)
+
+    return {
+        "wq": mat(d, h * hd),
+        "wk": mat(d, kv * hd),
+        "wv": mat(d, kv * hd),
+        "wo": mat(h * hd, d, std=1.0 / math.sqrt(h * hd)),
+    }
+
+
+def _ffn_params(gen: torch.Generator, cfg: ModelConfig, dev: torch.device):
+    """One dense SwiGLU FFN (the shared block: no L dim)."""
+    d, f = cfg.d_model, cfg.d_ff
+
+    def mat(*s):
+        return normal_init(gen, s, dtype=COMPUTE_DTYPE, device=dev)
+
+    return {"w_gate": mat(d, f), "w_up": mat(d, f), "w_down": mat(f, d)}
+
+
+def _mamba_params(gen: torch.Generator, cfg: ModelConfig, dev: torch.device):
+    """Every Mamba2 layer's weights, stacked (super-blocks, layers a block)."""
+    d = cfg.d_model
+    d_in = cfg.ssm_expand * d
+    n, h = cfg.ssm_state, cfg.ssm_heads
+    nb, ae = cfg.num_layers // cfg.attn_every, cfg.attn_every
+
+    def mat(*s, std=None):
+        w = normal_init(gen, (cfg.num_layers, *s), std, dtype=COMPUTE_DTYPE, device=dev)
+        return w.reshape(nb, ae, *s)
+
+    def full(size, value):
+        return torch.full((nb, ae, size), value, dtype=torch.float32, device=dev)
+
+    return {
+        "ln": full(d, 0.0),
+        "in_proj": mat(d, 2 * d_in + 2 * n + h),
+        "conv_w": mat(ssm_mod._CONV_K, d_in, std=0.5),
+        "dt_bias": full(h, 0.0),
+        "a_log": full(h, 0.0),
+        "d_skip": full(h, 1.0),
+        "norm": full(d_in, 0.0),
+        "out_proj": mat(d_in, d),
+    }
+
+
 def init_params(
     cfg: ModelConfig,
     seed_or_generator: Union[int, torch.Generator],
@@ -105,12 +168,22 @@ def init_params(
     else:
         gen = torch.Generator(device=dev).manual_seed(int(seed_or_generator))
     d, vp = cfg.d_model, cfg.padded_vocab
-    return {
+    params: Dict[str, Any] = {
         "final_norm": torch.zeros(d, dtype=torch.float32, device=dev),
         "embed": normal_init(gen, (vp, d), 0.02, dtype=COMPUTE_DTYPE, device=dev),
         "lm_head": normal_init(gen, (d, vp), 0.02, dtype=COMPUTE_DTYPE, device=dev),
-        "layers": _rwkv_params(gen, cfg, cfg.num_layers, dev),
     }
+    if cfg.family == "hybrid":
+        params["mamba"] = _mamba_params(gen, cfg, dev)
+        params["shared_attn"] = {
+            "ln1": torch.zeros(d, dtype=torch.float32, device=dev),
+            "ln2": torch.zeros(d, dtype=torch.float32, device=dev),
+            **_attn_params(gen, cfg, dev),
+            **_ffn_params(gen, cfg, dev),
+        }
+    else:
+        params["layers"] = _rwkv_params(gen, cfg, cfg.num_layers, dev)
+    return params
 
 
 def params_from_jax(
@@ -133,15 +206,77 @@ def params_from_jax(
     return {k: conv(k, v) for k, v in tree.items()}
 
 
-def _layers(params) -> list:
-    stacked = params["layers"]
-    depth = next(iter(stacked.values())).shape[0]
-    return [{k: v[i] for k, v in stacked.items()} for i in range(depth)]
+def _unstack(tree, i: int):
+    """Entry ``i`` of the leading dim of every leaf of a (nested) dict."""
+    return {k: _unstack(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
+
+
+def _stack(trees: list):
+    """The inverse of :func:`_unstack`: leaves stacked on a new leading dim."""
+    return {
+        k: _stack([t[k] for t in trees]) if isinstance(v, dict) else torch.stack([t[k] for t in trees])
+        for k, v in trees[0].items()
+    }
+
+
+def _depth(tree) -> int:
+    leaf = next(iter(tree.values()))
+    return _depth(leaf) if isinstance(leaf, dict) else leaf.shape[0]
 
 
 def _embed(params, tokens: torch.Tensor) -> torch.Tensor:
     emb = params["embed"]
     return emb[tokens.to(device=emb.device, dtype=torch.long)].to(COMPUTE_DTYPE)
+
+
+def _logits(cfg: ModelConfig, params, x_last: torch.Tensor) -> torch.Tensor:
+    """(B, D) -> fp32 (B, V); the product is rounded to bf16 before the
+    fp32 cast, as in the JAX package."""
+    x_last = rms_norm(x_last, params["final_norm"], cfg.norm_eps)
+    return (x_last @ params["lm_head"].to(COMPUTE_DTYPE)).float()
+
+
+# ---------------------------------------------------------------------------
+# Transformer blocks (Zamba2's shared block)
+# ---------------------------------------------------------------------------
+
+
+def _attn_qkv(x, p, cfg: ModelConfig, positions):
+    """Pre-norm q, k, v with RoPE: (B,S,H,hd), (B,S,KV,hd), (B,S,KV,hd)."""
+    b, s, _ = x.shape
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    dt = COMPUTE_DTYPE
+    a = rms_norm(x, p["ln1"], cfg.norm_eps)
+    q = (a @ p["wq"].to(dt)).reshape(b, s, h, hd)
+    k = (a @ p["wk"].to(dt)).reshape(b, s, kv, hd)
+    v = (a @ p["wv"].to(dt)).reshape(b, s, kv, hd)
+    return apply_rope(q, positions, cfg.rope_theta), apply_rope(k, positions, cfg.rope_theta), v
+
+
+def _attn_block(x, p, cfg: ModelConfig, *, window, positions):
+    """Returns (x + attention, (k, v)): the keys and values for the cache."""
+    b, s, _ = x.shape
+    q, k, v = _attn_qkv(x, p, cfg, positions)
+    o = blocked_attention(q, k, v, window=window)
+    x = x + o.reshape(b, s, -1) @ p["wo"].to(COMPUTE_DTYPE)
+    return x, (k, v)
+
+
+def _ffn_block(x, p, cfg: ModelConfig):
+    a = rms_norm(x, p["ln2"], cfg.norm_eps)
+    return x + dense_ffn(a, p["w_gate"], p["w_up"], p["w_down"])
+
+
+def _decode_attn_layer(x, p, cfg: ModelConfig, kc, vc, cur_len: int, window: int, positions):
+    """One decode attention block against a (B,S,KV,hd) cache layer. Writes
+    the token's k and v at ``cur_len`` into ``kc`` and ``vc`` in place: the
+    caller passes a fresh copy."""
+    b = x.shape[0]
+    q, k, v = _attn_qkv(x, p, cfg, positions)
+    kc[:, cur_len] = k[:, 0].to(kc.dtype)
+    vc[:, cur_len] = v[:, 0].to(vc.dtype)
+    o = decode_attention(q, kc, vc, cur_len + 1, window=window)
+    return x + o.reshape(b, 1, -1) @ p["wo"].to(COMPUTE_DTYPE)
 
 
 # ---------------------------------------------------------------------------
@@ -152,12 +287,27 @@ def _embed(params, tokens: torch.Tensor) -> torch.Tensor:
 def init_cache(
     cfg: ModelConfig, batch: int, max_len: int, *,
     device: Union[None, str, torch.device] = None,
-) -> Dict[str, torch.Tensor]:
-    """Zero cache for ``max_len`` positions (an RWKV-6 cache holds the
-    recurrence state and the two token-shift carries, whatever the length).
-    ``device="meta"`` sizes it without memory."""
+) -> Dict[str, Any]:
+    """Zero cache for ``max_len`` positions. An RWKV-6 cache holds each
+    layer's recurrence state and two token-shift carries, whatever the
+    length; a Zamba2 cache holds each Mamba2 layer's state and conv carry
+    under ``"mamba"`` (super-block, layer, ...), and the shared attention's
+    keys and values at each of its applications (super-block, B, max_len,
+    KV, hd). ``device="meta"`` sizes it without memory."""
     _check_family(cfg)
     dev = resolve_device(device)
+    if cfg.family == "hybrid":
+        nb, ae = cfg.num_layers // cfg.attn_every, cfg.attn_every
+        mam = ssm_mod.mamba2_init_cache(cfg, batch, COMPUTE_DTYPE, device="meta")
+        kv_shape = (nb, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+        return {
+            "mamba": {
+                k: torch.zeros((nb, ae, *v.shape), dtype=v.dtype, device=dev)
+                for k, v in mam.items()
+            },
+            "k": torch.zeros(kv_shape, dtype=COMPUTE_DTYPE, device=dev),
+            "v": torch.zeros(kv_shape, dtype=COMPUTE_DTYPE, device=dev),
+        }
     rw = ssm_mod.rwkv6_init_cache(cfg, batch, COMPUTE_DTYPE, device="meta")
     return {
         k: torch.zeros((cfg.num_layers, *v.shape), dtype=v.dtype, device=dev)
@@ -165,15 +315,10 @@ def init_cache(
     }
 
 
-def decode_step(cfg: ModelConfig, params, batch, cache, cur_len, ctx=None):
-    """One token for every sequence. ``batch``: {"tokens": (B, 1)}.
-    Returns (logits fp32 (B, V), new cache); ``cache`` is not modified."""
-    _check_family(cfg)
-    _check_ctx(ctx)
-    x = _embed(params, batch["tokens"])
+def _rwkv_decode(cfg: ModelConfig, params, x, cache):
     news = []
-    for i, p in enumerate(_layers(params)):
-        c = {k: v[i] for k, v in cache.items()}
+    for i in range(_depth(params["layers"])):
+        p, c = _unstack(params["layers"], i), _unstack(cache, i)
         y, c1 = ssm_mod.rwkv6_decode(rms_norm(x, p["ln1"], cfg.norm_eps), p, cfg, c)
         x = x + y
         z, cm_prev = ssm_mod.rwkv6_channel_mix(
@@ -182,21 +327,50 @@ def decode_step(cfg: ModelConfig, params, batch, cache, cur_len, ctx=None):
         c1["cm_prev"] = cm_prev
         news.append(c1)
         x = x + z
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    # the product is rounded to bf16 before the fp32 cast, as in the JAX package
-    logits = (x[:, 0] @ params["lm_head"].to(COMPUTE_DTYPE)).float()
-    return logits, {k: torch.stack([c[k] for c in news]) for k in cache}
+    return x, _stack(news)
 
 
-def prefill(cfg: ModelConfig, params, batch, max_len: int, ctx=None):
-    """Run the prompt; returns (last-position logits fp32 (B, V), filled
-    cache, length)."""
+def _hybrid_decode(cfg: ModelConfig, params, x, cache, cur_len: int):
+    shared = params["shared_attn"]
+    positions = torch.full((x.shape[0], 1), cur_len, dtype=torch.long, device=x.device)
+    # the given cache is shared by every generate task of its prompt: the
+    # token's keys and values go into a copy
+    knew, vnew = cache["k"].clone(), cache["v"].clone()
+    supers = []
+    for sb in range(_depth(params["mamba"])):
+        mp, mc = _unstack(params["mamba"], sb), _unstack(cache["mamba"], sb)
+        news = []
+        for j in range(_depth(mp)):
+            p = _unstack(mp, j)
+            y, c1 = ssm_mod.mamba2_decode(
+                rms_norm(x, p["ln"], cfg.norm_eps), p, cfg, _unstack(mc, j)
+            )
+            x = x + y
+            news.append(c1)
+        supers.append(_stack(news))
+        x = _decode_attn_layer(x, shared, cfg, knew[sb], vnew[sb], cur_len, 2**30, positions)
+        x = _ffn_block(x, shared, cfg)
+    return x, {"mamba": _stack(supers), "k": knew, "v": vnew}
+
+
+def decode_step(cfg: ModelConfig, params, batch, cache, cur_len: int, ctx=None):
+    """One token for every sequence at position ``cur_len``. ``batch``:
+    {"tokens": (B, 1)}. Returns (logits fp32 (B, V), new cache); ``cache``
+    is not modified."""
     _check_family(cfg)
     _check_ctx(ctx)
     x = _embed(params, batch["tokens"])
-    s = x.shape[1]
+    if cfg.family == "hybrid":
+        x, cache = _hybrid_decode(cfg, params, x, cache, int(cur_len))
+    else:
+        x, cache = _rwkv_decode(cfg, params, x, cache)
+    return _logits(cfg, params, x[:, 0]), cache
+
+
+def _rwkv_prefill(cfg: ModelConfig, params, x):
     states, tm_prev, cm_prev = [], [], []
-    for p in _layers(params):
+    for i in range(_depth(params["layers"])):
+        p = _unstack(params["layers"], i)
         a = rms_norm(x, p["ln1"], cfg.norm_eps)
         y, state = ssm_mod.rwkv6_block(a, p, cfg, return_state=True)
         x = x + y
@@ -210,6 +384,45 @@ def prefill(cfg: ModelConfig, params, batch, max_len: int, ctx=None):
         "tm_prev": torch.stack(tm_prev),
         "cm_prev": torch.stack(cm_prev),
     }
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = (x[:, -1] @ params["lm_head"].to(COMPUTE_DTYPE)).float()
-    return logits, cache, s
+    return x, cache
+
+
+def _hybrid_prefill(cfg: ModelConfig, params, x, max_len: int):
+    shared = params["shared_attn"]
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    supers, ks, vs = [], [], []
+    for sb in range(_depth(params["mamba"])):
+        mp = _unstack(params["mamba"], sb)
+        caches = []
+        for j in range(_depth(mp)):
+            p = _unstack(mp, j)
+            y, c = ssm_mod.mamba2_block(
+                rms_norm(x, p["ln"], cfg.norm_eps), p, cfg, return_cache=True
+            )
+            x = x + y
+            caches.append(c)
+        x, (k, v) = _attn_block(x, shared, cfg, window=s, positions=positions)
+        x = _ffn_block(x, shared, cfg)
+        supers.append(_stack(caches))
+        ks.append(k)
+        vs.append(v)
+    kv_shape = (len(ks), b, max_len, cfg.num_kv_heads, cfg.head_dim)
+    kc = torch.zeros(kv_shape, dtype=COMPUTE_DTYPE, device=x.device)
+    vc = torch.zeros(kv_shape, dtype=COMPUTE_DTYPE, device=x.device)
+    kc[:, :, :s] = torch.stack(ks)
+    vc[:, :, :s] = torch.stack(vs)
+    return x, {"mamba": _stack(supers), "k": kc, "v": vc}
+
+
+def prefill(cfg: ModelConfig, params, batch, max_len: int, ctx=None):
+    """Run the prompt; returns (last-position logits fp32 (B, V), filled
+    cache, length)."""
+    _check_family(cfg)
+    _check_ctx(ctx)
+    x = _embed(params, batch["tokens"])
+    if cfg.family == "hybrid":
+        x, cache = _hybrid_prefill(cfg, params, x, max_len)
+    else:
+        x, cache = _rwkv_prefill(cfg, params, x)
+    return _logits(cfg, params, x[:, -1]), cache, x.shape[1]

@@ -1,15 +1,17 @@
-"""State-space blocks: RWKV-6 (Finch) time mixing and channel mixing.
+"""State-space blocks: Mamba2 (SSD), and RWKV-6 (Finch) time mixing and
+channel mixing.
 
-Time mixing reduces to the diagonal-gated linear recurrence of
+Both reduce to the diagonal-gated linear recurrence of
 :func:`repro_torch.kernels.ops.ssm_scan`:
 
-    h_t = w_t ⊙ h_{t-1} + k_t ⊗ v_t ;   y_t = h_tᵀ r_t
+    h_t = a_t ⊙ h_{t-1} + b_t ⊗ x_t ;   y_t = h_tᵀ c_t
 
-with a per-channel, data-dependent decay ``w`` and the current-token bonus
-``u`` added at readout, as in the JAX package (decay applied at the
-consuming step). Prefill runs the chunked scan (the CUDA kernel on the
-card); decode updates the state directly, O(1) a token, with plain tensor
-code. The Mamba2 half of the JAX module is not ported yet.
+Mamba2 has a scalar decay per head (``a`` of shape (B, S, H), which the
+kernel reads with a zero stride over the state dim). RWKV-6 has a
+per-channel, data-dependent decay ``w`` and the current-token bonus ``u``
+added at readout, as in the JAX package (decay applied at the consuming
+step). Prefill runs the chunked scan (the CUDA kernel on the card); decode
+updates the state directly, O(1) a token, with plain tensor code.
 """
 
 from __future__ import annotations
@@ -20,14 +22,123 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
-from repro_torch.models.layers import COMPUTE_DTYPE
+from repro_torch.models.layers import COMPUTE_DTYPE, rms_norm
 
 __all__ = [
+    "mamba2_block",
+    "mamba2_decode",
+    "mamba2_init_cache",
+    "mamba2_scan_inputs",
     "rwkv6_block",
     "rwkv6_channel_mix",
     "rwkv6_decode",
     "rwkv6_init_cache",
 ]
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 (SSD)
+# ---------------------------------------------------------------------------
+
+_CONV_K = 4
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, prev: Optional[torch.Tensor] = None):
+    """Depthwise causal conv, kernel _CONV_K. x: (B, S, C); w: (K, C).
+    ``prev``: (B, K-1, C) carry-in state. Returns (y, new_prev). The taps
+    are multiplied and summed in x's dtype, one rounding an operation."""
+    b, s, c = x.shape
+    if prev is None:
+        prev = torch.zeros((b, _CONV_K - 1, c), dtype=x.dtype, device=x.device)
+    xp = torch.cat([prev, x], dim=1)  # (B, S+K-1, C)
+    y = xp[:, 0:s] * w[0]
+    for i in range(1, _CONV_K):
+        y = y + xp[:, i : i + s] * w[i]
+    return F.silu(y.float()).to(x.dtype), xp[:, -(_CONV_K - 1):]
+
+
+def _mamba_project(x, p, cfg):
+    d_in = cfg.ssm_expand * cfg.d_model
+    n = cfg.ssm_state
+    zxbcdt = x @ p["in_proj"].to(COMPUTE_DTYPE)
+    z, xs, bc, cc, dt = torch.split(zxbcdt, [d_in, d_in, n, n, cfg.ssm_heads], dim=-1)
+    # softplus as jax.nn.softplus: log(1 + e^x) without a cut-off
+    dt = torch.logaddexp(dt.float() + p["dt_bias"].float(), torch.zeros((), device=x.device))
+    a = torch.exp(-dt * torch.exp(p["a_log"].float()))  # (B,S,H) decay
+    return z, xs, bc, cc, dt, a
+
+
+def _mamba_readout(y, xh, z, p, cfg):
+    """Skip term, gate, norm and out-proj, shared by prefill and decode.
+    y: (B, S, H, P) scan output; xh: (B, S, H, P) conv output."""
+    b, s = y.shape[:2]
+    y = y + p["d_skip"].float()[None, None, :, None] * xh.float()
+    y = y.reshape(b, s, -1).to(COMPUTE_DTYPE)
+    y = y * F.silu(z.float()).to(COMPUTE_DTYPE)
+    y = rms_norm(y, p["norm"], cfg.norm_eps)
+    return y @ p["out_proj"].to(COMPUTE_DTYPE)
+
+
+def mamba2_scan_inputs(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg):
+    """The prefill's projections and conv: returns the scan's inputs
+    ``(xh, a, b, c)`` as :func:`mamba2_block` passes them (c broadcast over
+    the heads without a copy), the gate ``z`` and the conv carry."""
+    b, s, _ = x.shape
+    h, n, pdim = cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim
+    z, xs, bc, cc, dt, a = _mamba_project(x, p, cfg)
+    xs, conv_state = _causal_conv(xs, p["conv_w"].to(COMPUTE_DTYPE))
+    xh = xs.reshape(b, s, h, pdim)
+    beff = (bc[:, :, None, :] * dt[..., None]).to(COMPUTE_DTYPE)  # (B,S,H,N)
+    ceff = cc[:, :, None, :].expand(b, s, h, n)
+    return (xh, a, beff, ceff), z, conv_state
+
+
+def mamba2_block(
+    x: torch.Tensor, p: Dict[str, torch.Tensor], cfg, *, return_cache: bool = False
+):
+    """x: (B, S, D) -> (B, S, D). Prefill path (chunked scan).
+    ``return_cache`` also returns the final recurrence and conv state."""
+    (xh, a, beff, ceff), z, conv_state = mamba2_scan_inputs(x, p, cfg)
+    y, hfinal = kops.ssm_scan(xh, a, beff, ceff)
+    out = _mamba_readout(y, xh, z, p, cfg)
+    if return_cache:
+        return out, {"state": hfinal, "conv": conv_state}
+    return out
+
+
+def mamba2_init_cache(
+    cfg, batch: int, dtype=torch.float32, *, device=None
+) -> Dict[str, torch.Tensor]:
+    h, n, pdim = cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim
+    d_in = cfg.ssm_expand * cfg.d_model
+    return {
+        "state": torch.zeros((batch, h, n, pdim), dtype=torch.float32, device=device),
+        "conv": torch.zeros((batch, _CONV_K - 1, d_in), dtype=dtype, device=device),
+    }
+
+
+def mamba2_decode(
+    x: torch.Tensor, p: Dict[str, torch.Tensor], cfg, cache: Dict[str, torch.Tensor]
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """x: (B, 1, D); O(1) state update. Returns a new cache; the given one
+    is not modified."""
+    b = x.shape[0]
+    h, n, pdim = cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim
+    z, xs, bc, cc, dt, a = _mamba_project(x, p, cfg)
+    xs, conv_new = _causal_conv(xs, p["conv_w"].to(COMPUTE_DTYPE), cache["conv"])
+    xh = xs.reshape(b, 1, h, pdim)
+    beff = bc[:, 0, None, :] * dt[:, 0, :, None]  # (B,H,N)
+    state = (
+        a[:, 0, :, None, None] * cache["state"]
+        + beff[..., None] * xh[:, 0, :, None, :].float()
+    )
+    y = torch.einsum("bhnp,bhn->bhp", state, cc[:, 0, None, :].expand(b, h, n).float())
+    return _mamba_readout(y[:, None], xh, z, p, cfg), {"state": state, "conv": conv_new}
+
+
+# ---------------------------------------------------------------------------
+# RWKV-6 (Finch)
+# ---------------------------------------------------------------------------
 
 
 def _token_shift(x: torch.Tensor, prev: Optional[torch.Tensor] = None) -> torch.Tensor:
