@@ -16,24 +16,26 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
 4. the single-tile SA study, ``repro_torch.app.run_study``, on a 4096²
    tile with the 16-run MOAT design over Table I, counting kernel launches;
 5. the same study code on card and CPU at 256², Dice within 1e-3;
-6. build: the ``ssm_scan`` CUDA kernel;
-7. ``ssm_scan`` vs its two plain versions on the card in fp32, on the cases
-   of tests/test_kernel_ssm_scan.py, then at the prefill's real shape and
-   types (layer 0 of RWKV-6 1.6B), with the kernel's time, bound and the
-   plain time;
+6. build: the ``ssm_scan`` CUDA kernel (chunk-parallel: three passes);
+7. ``ssm_scan`` vs its three plain versions on the card in fp32, on the
+   cases of tests/test_kernel_ssm_scan.py, then at the prefill's real shape
+   and types (layer 0 of RWKV-6 1.6B), with the kernel's time, bound and the
+   plain times;
 8. the SA-serve study, ``repro_torch.core.sa_serve.run_sa_serve``, on RWKV-6
    1.6B at full width: 3 prompts of 1024 tokens × 12 decoding settings ×
    3 thresholds, counting kernel launches;
 9. the same serve study code on card and CPU on the reduced RWKV-6;
-10. build: the ``flash_attention`` CUDA kernel;
-11. ``flash_attention`` vs its plain versions on the card in fp32, on the
-    cases of tests/test_kernel_flash_attention.py, then at the prefill's
-    real shape and types (the shared block's first application in Zamba2
-    2.7B), with the kernel's time, bound, the plain time and the time of
+10. build: the two ``flash_attention`` CUDA kernels (CUDA cores; tensor
+    cores with ``wgmma`` and TMA);
+11. ``flash_attention`` vs its plain versions on the card: the cases of
+    tests/test_kernel_flash_attention.py in fp32 on the CUDA-core kernel,
+    and in bf16 on the tensor-core kernel; then at the prefill's real shape
+    and types (the shared block's first application in Zamba2 2.7B), with
+    both kernels' times, the bound, the plain time and the time of
     PyTorch's ``scaled_dot_product_attention`` on the same tensors;
 12. the SA-serve study on Zamba2 2.7B at full width: 3 prompts of 4096
-    tokens × 12 decoding settings × 3 thresholds, counting both kernels'
-    launches;
+    tokens × 12 decoding settings × 3 thresholds, counting the kernels'
+    launches (attention on the tensor-core kernel only);
 13. the same serve study code on card and CPU on the reduced Zamba2.
 
 Phase 7 also holds ``ssm_scan`` at Mamba2's real shape (layer 0 of the
@@ -139,8 +141,9 @@ def scan_real_shape(real, reps, plain_reps):
     """``ssm_scan`` at a prefill's real shape and types against the chunked
     plain version: y within one bf16 rounding of fp32 sums that agree to
     1e-4 of the largest y; h_final, fp32, to the kernel's bar relative to
-    the largest state value. Returns (kernel ms, plain ms, bound ms, what
-    bounds it)."""
+    the largest state value; the same bars against the three-pass plain
+    version, whose passes the kernel runs. Returns (kernel ms, chunked plain
+    ms, three-pass plain ms, bound ms, what bounds it)."""
     from repro_torch.kernels import ref as kref, ssm_scan
 
     y, hf = ssm_scan.ssm_scan_cuda(*real)
@@ -154,12 +157,21 @@ def scan_real_shape(real, reps, plain_reps):
     print(f"real shape: y max abs err {float((y.float() - yp.float()).abs().max())} "
           f"(max |y| {ymax}); h_final max abs err {float((hf - hp).abs().max())} "
           f"(max |h| {hmax})")
+    y3, h3 = kref.ssm_scan_three_pass(*real)
+    check(torch.allclose(y.float(), y3.float(), rtol=2 ** -7, atol=1e-4 * ymax),
+          "real-shape y within one bf16 rounding of the three-pass plain version")
+    check(torch.allclose(hf, h3, rtol=2e-4, atol=2e-4 * max(1.0, hmax)),
+          "real-shape h_final within 2e-4 of the three-pass plain version")
+    print(f"real shape vs three-pass: y max abs err {float((y.float() - y3.float()).abs().max())}; "
+          f"h_final max abs err {float((hf - h3).abs().max())}")
+    del yp, hp, y3, h3
     ms = cuda_ms(lambda: ssm_scan.ssm_scan_cuda(*real), reps)
     plain_ms = cuda_ms(lambda: kref.ssm_scan_chunked(*real), plain_reps)
+    plain3_ms = cuda_ms(lambda: kref.ssm_scan_three_pass(*real), plain_reps)
     bound_ms, bound_by = scan_bound(*real, y, hf)
-    print(f"real shape: kernel {ms:.4f} ms, plain (chunked) {plain_ms:.4f} ms, "
-          f"bound {bound_ms:.4f} ms ({bound_by}); {ms / bound_ms:.1f}x bound")
-    return ms, plain_ms, bound_ms, bound_by
+    print(f"real shape: kernel {ms:.4f} ms, plain (chunked) {plain_ms:.4f} ms, plain (three-pass) "
+          f"{plain3_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); {ms / bound_ms:.1f}x bound")
+    return ms, plain_ms, plain3_ms, bound_ms, bound_by
 
 
 def attn_bound(q, k, v, out):
@@ -407,10 +419,11 @@ def main() -> int:
     print("tf32: matmul off, cudnn off")
     # one nvcc for each kernel source, started together
     t_build = time.perf_counter()
-    build_pool = concurrent.futures.ThreadPoolExecutor(max_workers=3)
+    build_pool = concurrent.futures.ThreadPoolExecutor(max_workers=4)
     builds = {"morph_recon": build_pool.submit(morph_recon.build),
               "ssm_scan": build_pool.submit(ssm_scan.build),
-              "flash_attention": build_pool.submit(flash_attention.build)}
+              "flash_attention": build_pool.submit(flash_attention.build),
+              "flash_attention_wgmma": build_pool.submit(flash_attention.build_wgmma)}
     build_pool.shutdown(wait=False)
 
     def show_build(name):
@@ -545,6 +558,13 @@ def main() -> int:
     # -- 6. build ssm_scan --------------------------------------------------
     phase("6 build")
     show_build("ssm_scan")
+    for per_head in (True, False):  # Mamba2's and RWKV-6's prefill: N = P = chunk = 64
+        built_smem = tuple(ssm_scan.build().lib.ssm_scan_smem(64, 64, 64, int(per_head), pas)
+                           for pas in (0, 1))
+        check(built_smem == ssm_scan.shared_memory_bytes(64, 64, 64, per_head),
+              f"shared memory of the passes {built_smem} as ssm_scan.shared_memory_bytes says")
+        print(f"dynamic shared memory a block ({'per head' if per_head else 'per channel'}): "
+              f"state pass {built_smem[0]}, output pass {built_smem[1]} bytes")
 
     # -- 7. ssm_scan vs its plain versions --------------------------------
     phase("7 ssm_scan vs plain versions (fp32 inputs, rtol = atol = 2e-4; chunk sweep 3e-4)")
@@ -563,12 +583,14 @@ def main() -> int:
         check(bool(torch.isfinite(y).all()), f"finite y on {name}")
         errs = []
         for plain, (yp, hp) in (("ref", kref.ssm_scan_ref(x, a, b, c)),
-                                ("chunked", kref.ssm_scan_chunked(x, a, b, c, chunk=chunk))):
+                                ("chunked", kref.ssm_scan_chunked(x, a, b, c, chunk=chunk)),
+                                ("three_pass", kref.ssm_scan_three_pass(x, a, b, c, chunk=chunk))):
             check(torch.allclose(y, yp, rtol=tol, atol=tol) and torch.allclose(hf, hp, rtol=tol, atol=tol),
                   f"ssm_scan within {tol} of ssm_scan_{plain} on {name}")
             errs.append(max(float((y - yp).abs().max()), float((hf - hp).abs().max())))
         scan_err = max(scan_err, *errs)
-        print(f"{name} chunk={chunk}: max abs err vs ref {errs[0]:.3g}, vs chunked {errs[1]:.3g}")
+        print(f"{name} chunk={chunk}: max abs err vs ref {errs[0]:.3g}, vs chunked {errs[1]:.3g}, "
+              f"vs three_pass {errs[2]:.3g}")
     print(f"max_abs_err {scan_err}")
 
     cfg = configs.get_config(ARCH)
@@ -592,7 +614,7 @@ def main() -> int:
     real = (v, w, k, r)  # x, a, b, c as rwkv6_block passes them
     print("real shape: x/b/c " + ", ".join(f"{tuple(t.shape)} {t.dtype}" for t in (v, k, r))
           + f"; a {tuple(w.shape)} {w.dtype}")
-    scan_ms, scan_plain_ms, scan_bound_ms, scan_bound_by = scan_real_shape(real, 50, 5)
+    scan_ms, scan_plain_ms, scan_3p_ms, scan_bound_ms, scan_bound_by = scan_real_shape(real, 50, 5)
     del real, r, k, v, w, xe, xa, layer0  # layer0's views hold every RWKV-6 layer
 
     # Mamba2's real shape: layer 0 of the Zamba2 2.7B prefill of prompt 0
@@ -617,7 +639,7 @@ def main() -> int:
                                                   (real[0], real[2], real[3]))
           + f"; a {tuple(real[1].shape)} {real[1].dtype} (per head); c's stride over H "
           f"{real[3].stride(2)}")
-    m2_ms, m2_plain_ms, m2_bound_ms, m2_bound_by = scan_real_shape(real, 20, 2)
+    m2_ms, m2_plain_ms, m2_3p_ms, m2_bound_ms, m2_bound_by = scan_real_shape(real, 20, 2)
     print(f"Mamba2 shape: {zcfg.num_layers} launches a prefill, "
           f"{zcfg.num_layers * m2_ms:.1f} ms of kernel time")
     print("library call: none (no one PyTorch call computes a gated linear recurrence)")
@@ -633,7 +655,8 @@ def main() -> int:
                                 "active_paths": 2, "peak_bytes": 28_754_048},
                       launches={"ssm_scan": (ssm_scan.LAUNCHES, cfg.num_layers * PROMPTS)},
                       silent={"morph_recon": morph_recon.LAUNCHES,
-                              "flash_attention": flash_attention.LAUNCHES},
+                              "flash_attention": flash_attention.LAUNCHES,
+                              "flash_attention_wgmma": flash_attention.WGMMA_LAUNCHES},
                       sa_serve=sa_serve)
     launches["rwkv6_serve"] = out["launches"]["ssm_scan"]
     del params
@@ -646,11 +669,20 @@ def main() -> int:
     # -- 10. build flash_attention -----------------------------------------
     phase("10 build")
     show_build("flash_attention")
-    print(f"dynamic shared memory a block at D = {zcfg.head_dim}: "
-          f"{flash_attention.shared_memory_bytes(zcfg.head_dim)} bytes")
+    built_smem = flash_attention.build().lib.flash_attention_smem(zcfg.head_dim)
+    check(built_smem == flash_attention.shared_memory_bytes(zcfg.head_dim),
+          "CUDA-core kernel's shared memory as shared_memory_bytes says")
+    print(f"dynamic shared memory a block at D = {zcfg.head_dim}: {built_smem} bytes")
+    show_build("flash_attention_wgmma")
+    built_smem = flash_attention.build_wgmma().lib.flash_attention_wgmma_smem(zcfg.head_dim)
+    check(built_smem == flash_attention.wgmma_shared_memory_bytes(zcfg.head_dim),
+          "tensor-core kernel's shared memory as wgmma_shared_memory_bytes says")
+    print(f"dynamic shared memory a CTA at D = {zcfg.head_dim}: {built_smem} bytes "
+          f"({flash_attention.WGMMA_THREADS} threads)")
 
     # -- 11. flash_attention vs its plain versions -------------------------
-    phase("11 flash_attention vs plain versions (fp32 inputs, rtol = atol = 2e-5)")
+    phase("11 flash_attention vs plain versions (fp32 on the CUDA cores, rtol = atol = 2e-5; "
+          "bf16 on the tensor cores, one bf16 rounding of the plain version, 2e-2 of the oracle)")
     cases = [(f"causal {c}", qkv_case(c[0], c[1], c[1], *c[2:], seed=c[1] + c[2]), None, 0)
              for c in FA_CAUSAL]
     cases += [(f"window {w}", qkv_case(1, 96, 96, 2, 2, 32, seed=w), w, 0) for w in FA_WINDOWS]
@@ -661,9 +693,12 @@ def main() -> int:
     fa_err = 0.0
     for name, (q, k, v), window, q_offset in cases:
         before = flash_attention.LAUNCHES.value
+        wgmma_before = flash_attention.WGMMA_LAUNCHES.value
         got = flash_attention.flash_attention_cuda(q, k, v, window=window, q_offset=q_offset)
         torch.cuda.synchronize()
-        check(flash_attention.LAUNCHES.value == before + 1, f"one launch for {name}")
+        check(flash_attention.LAUNCHES.value == before + 1
+              and flash_attention.WGMMA_LAUNCHES.value == wgmma_before,
+              f"one CUDA-core launch for {name}")
         errs = []
         for plain, want in (
             ("attention_ref", kref.attention_ref(q, k, v, window=window)),
@@ -675,7 +710,51 @@ def main() -> int:
             errs.append(float((got - want).abs().max()))
         fa_err = max(fa_err, *errs)
         print(f"{name}: max abs err vs attention_ref {errs[0]:.3g}, vs blocked {errs[1]:.3g}")
-    print(f"max_abs_err {fa_err}")
+    print(f"max_abs_err (fp32, CUDA cores) {fa_err}")
+    fa_bf16_err = 0.0
+    for name, qkv, window, q_offset in cases:
+        q, k, v = (t.bfloat16() for t in qkv)
+        check(kref.uses_tensor_cores(q.dtype, q.shape[3]), f"{name} in bf16 takes the tensor cores")
+        before = flash_attention.WGMMA_LAUNCHES.value
+        simt_before = flash_attention.LAUNCHES.value
+        got = flash_attention.flash_attention_cuda(q, k, v, window=window, q_offset=q_offset)
+        torch.cuda.synchronize()
+        check(flash_attention.WGMMA_LAUNCHES.value == before + 1
+              and flash_attention.LAUNCHES.value == simt_before, f"one tensor-core launch for {name}")
+        want = kref.flash_attention_blocked(q, k, v, window=window, q_offset=q_offset)
+        check(torch.allclose(got.float(), want.float(), rtol=2 ** -7, atol=2 ** -8),
+              f"bf16 {name} within one bf16 rounding of flash_attention_blocked")
+        oracle = kref.attention_ref(*(t.float() for t in (q, k, v)), window=window)
+        # the oracle aligns the queries at the end of the keys, as q_offset does here
+        check(torch.allclose(got.float(), oracle, rtol=2e-2, atol=2e-2),
+              f"bf16 {name} within 2e-2 of attention_ref on the same bf16 values")
+        errs = (float((got.float() - want.float()).abs().max()),
+                float((got.float() - oracle).abs().max()))
+        fa_bf16_err = max(fa_bf16_err, *errs)
+        print(f"bf16 {name}: max abs err vs blocked {errs[0]:.3g}, vs attention_ref {errs[1]:.3g}")
+    print(f"max_abs_err (bf16, tensor cores) {fa_bf16_err}")
+    fa_err_bf16_simt = 0.0
+    for d in (72, 24):  # bf16 with D not a multiple of 16: the CUDA-core kernel by dispatch
+        q, k, v = (t.bfloat16() for t in qkv_case(1, 300, 300, 8, 4, d, seed=d))
+        check(not kref.uses_tensor_cores(q.dtype, d), f"bf16 D = {d} takes the CUDA cores")
+        before = flash_attention.LAUNCHES.value
+        wgmma_before = flash_attention.WGMMA_LAUNCHES.value
+        got = flash_attention.flash_attention_cuda(q, k, v, window=120)
+        torch.cuda.synchronize()
+        check(flash_attention.LAUNCHES.value == before + 1
+              and flash_attention.WGMMA_LAUNCHES.value == wgmma_before,
+              f"one CUDA-core launch for bf16 D = {d}")
+        want = kref.flash_attention_blocked(q, k, v, window=120)  # fp32 arithmetic for such D
+        check(torch.allclose(got.float(), want.float(), rtol=2 ** -7, atol=2 ** -9),
+              f"bf16 D = {d} within one bf16 rounding of flash_attention_blocked")
+        oracle = kref.attention_ref(*(t.float() for t in (q, k, v)), window=120)
+        check(torch.allclose(got.float(), oracle, rtol=2e-2, atol=2e-2),
+              f"bf16 D = {d} within 2e-2 of attention_ref on the same bf16 values")
+        errs = (float((got.float() - want.float()).abs().max()),
+                float((got.float() - oracle).abs().max()))
+        fa_err_bf16_simt = max(fa_err_bf16_simt, *errs)
+        print(f"bf16 D = {d} (1,300,8,4) window 120 on the CUDA cores: max abs err vs blocked "
+              f"{errs[0]:.3g}, vs attention_ref {errs[1]:.3g}")
     del cases
 
     # the shared block's first application in the prefill of prompt 0
@@ -686,17 +765,33 @@ def main() -> int:
         p = {k_: v_[0, j] for k_, v_ in zparams["mamba"].items()}
         x = x + ssm_mod.mamba2_block(rms_norm(x, p["ln"], zcfg.norm_eps), p, zcfg)
     real = model_mod._attn_qkv(x, zparams["shared_attn"], zcfg, positions)
-    print("real shape: q/k/v " + ", ".join(f"{tuple(t.shape)} {t.dtype}" for t in real))
+    print("real shape: q/k/v " + ", ".join(f"{tuple(t.shape)} {t.dtype}" for t in real)
+          + "; strides " + ", ".join(str(t.stride()) for t in real))
+    before = flash_attention.WGMMA_LAUNCHES.value
     got = flash_attention.flash_attention_cuda(*real)
     torch.cuda.synchronize()
-    want = kref.flash_attention_blocked(*real)
+    check(flash_attention.WGMMA_LAUNCHES.value == before + 1, "the real shape takes the tensor cores")
+    want = kref.flash_attention_blocked(*real)  # its bf16 arithmetic: P rounded to bf16
     omax = float(want.float().abs().max())
     # one bf16 rounding of fp32 results that agree to 1e-4 of the largest
     check(torch.allclose(got.float(), want.float(), rtol=2 ** -7, atol=1e-4 * omax),
           "real-shape output within one bf16 rounding of the blocked plain version")
     fa_real_err = float((got.float() - want.float()).abs().max())
     print(f"real shape: max abs err {fa_real_err} (max |out| {omax})")
+    simt_got = flash_attention.flash_attention_simt(*real)
+    torch.cuda.synchronize()
+    # the CUDA-core kernel's arithmetic: q·scale and the probabilities in fp32
+    simt_want = kref.flash_attention_blocked(*(t.float() for t in real)).bfloat16()
+    check(torch.allclose(simt_got.float(), simt_want.float(), rtol=2 ** -7, atol=1e-4 * omax),
+          "real-shape CUDA-core output within one bf16 rounding of the fp32 plain version")
+    simt_err = float((simt_got.float() - simt_want.float()).abs().max())
+    print(f"real shape, CUDA-core kernel: max abs err {simt_err} against the fp32 plain version; "
+          f"{float((simt_got.float() - want.float()).abs().max())} from the bf16-P one")
+    fa_err_bf16_simt = max(fa_err_bf16_simt, simt_err)
+    del simt_got, simt_want
     fa_ms = cuda_ms(lambda: flash_attention.flash_attention_cuda(*real), 20)
+    simt_ms = cuda_ms(lambda: flash_attention.flash_attention_simt(*real), 5)
+    fa_ms_again = cuda_ms(lambda: flash_attention.flash_attention_cuda(*real), 20)
     fa_plain_ms = cuda_ms(lambda: kref.flash_attention_blocked(*real), 2)
     qt, kt, vt = (t.transpose(1, 2) for t in real)
     sdpa = functools.partial(torch.nn.functional.scaled_dot_product_attention, qt, kt, vt,
@@ -704,10 +799,12 @@ def main() -> int:
     sdpa_err = float((sdpa().transpose(1, 2).float() - want.float()).abs().max())
     fa_lib_ms = cuda_ms(sdpa, 20)
     fa_bound_ms, fa_bound_by, fa_bytes, fa_flops, fa_exps = attn_bound(*real, got)
-    print(f"real shape: kernel {fa_ms:.4f} ms, plain (blocked) {fa_plain_ms:.4f} ms, "
+    print(f"real shape: tensor-core kernel {fa_ms:.4f} ms ({fa_ms_again:.4f} ms again after the "
+          f"CUDA-core one), CUDA-core kernel {simt_ms:.4f} ms, plain (blocked) {fa_plain_ms:.4f} ms, "
           f"library call (scaled_dot_product_attention, is_causal) {fa_lib_ms:.4f} ms "
           f"(max abs diff {sdpa_err}); bound {fa_bound_ms:.4f} ms ({fa_bound_by}: "
-          f"{fa_flops / 1e9:.1f} GFLOP, {fa_bytes / 1e6:.1f} MB); {fa_ms / fa_bound_ms:.1f}x bound")
+          f"{fa_flops / 1e9:.1f} GFLOP, {fa_bytes / 1e6:.1f} MB); tensor cores "
+          f"{fa_ms / fa_bound_ms:.2f}x bound, CUDA cores {simt_ms / fa_bound_ms:.1f}x bound")
     print(f"exponentials: {fa_exps} ({fa_exps * 1e3 / SFU_OPS_PER_S:.4f} ms at one SFU op each)")
     del real, got, want, x, qt, kt, vt
     torch.cuda.empty_cache()
@@ -719,10 +816,13 @@ def main() -> int:
                                 "tasks_executed": 51, "reuse_fraction": 57 / 108,
                                 "active_paths": 2, "peak_bytes": 1_015_649_408},
                       launches={"ssm_scan": (ssm_scan.LAUNCHES, zcfg.num_layers * PROMPTS),
-                                "flash_attention": (flash_attention.LAUNCHES, zn_blocks * PROMPTS)},
-                      silent={"morph_recon": morph_recon.LAUNCHES}, sa_serve=sa_serve)
+                                "flash_attention_wgmma": (flash_attention.WGMMA_LAUNCHES,
+                                                          zn_blocks * PROMPTS)},
+                      silent={"morph_recon": morph_recon.LAUNCHES,
+                              "flash_attention": flash_attention.LAUNCHES}, sa_serve=sa_serve)
     launches["zamba2_serve"] = out["launches"]["ssm_scan"]
-    fa_launches = out["launches"]["flash_attention"]
+    fa_launches = out["launches"]["flash_attention_wgmma"]
+    simt_launches = flash_attention.LAUNCHES.value  # checked 0 in the study
     del zparams
     torch.cuda.empty_cache()
 
@@ -754,21 +854,36 @@ def main() -> int:
         "max_abs_err": scan_err,
         "ms": scan_ms,
         "plain_ms": scan_plain_ms,
+        "plain_three_pass_ms": scan_3p_ms,
         "bound_ms": scan_bound_ms,
         "bound_by": scan_bound_by,
         "library_ms": None,
         "mamba2_ms": m2_ms,
         "mamba2_plain_ms": m2_plain_ms,
+        "mamba2_plain_three_pass_ms": m2_3p_ms,
         "mamba2_bound_ms": m2_bound_ms,
         "mamba2_bound_by": m2_bound_by,
+    }, {
+        "name": "flash_attention_wgmma",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:27",
+        "launches": fa_launches,
+        "max_abs_err": fa_bf16_err,
+        "ms": fa_ms,
+        "plain_ms": fa_plain_ms,
+        "bound_ms": fa_bound_ms,
+        "bound_by": fa_bound_by,
+        "library_ms": fa_lib_ms,
     }, {
         "name": "flash_attention",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:27",
-        "launches": fa_launches,
+        "launches": simt_launches,
         "max_abs_err": fa_err,
-        "ms": fa_ms,
+        "max_abs_err_bf16": fa_err_bf16_simt,
+        "ms": simt_ms,
         "plain_ms": fa_plain_ms,
         "bound_ms": fa_bound_ms,
         "bound_by": fa_bound_by,

@@ -5,8 +5,10 @@ PyTorch versions (ref.py), their build (nvcc.py) and the device dispatch
 * ``morph_recon`` — morphological reconstruction by dilation (the paper's
   segmentation propagation hot-spot), CUDA C++ in ``csrc/morph_recon.cu``.
 * ``ssm_scan`` — the chunked diagonal-gated linear recurrence of RWKV-6 and
-  Mamba2, CUDA C++ in ``csrc/ssm_scan.cu``.
-* ``flash_attention`` — causal, sliding-window, grouped-query attention
-  (FlashAttention-2's forward pass) of Zamba2's shared block, CUDA C++ in
-  ``csrc/flash_attention.cu``.
+  Mamba2, CUDA C++ in ``csrc/ssm_scan.cu`` (parallel over chunks, three
+  passes).
+* ``flash_attention`` — causal, sliding-window, grouped-query attention of
+  Zamba2's shared block: on the tensor cores for bf16
+  (``csrc/flash_attention_wgmma.cu``, ``wgmma`` fed by TMA) and on the CUDA
+  cores in IEEE fp32 otherwise (``csrc/flash_attention.cu``).
 """

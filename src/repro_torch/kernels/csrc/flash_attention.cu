@@ -206,15 +206,26 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   }
 }
 
+// Dynamic shared memory of a block: the q, K and V tiles and the
+// probability tile (kernels/flash_attention.py: shared_memory_bytes).
+size_t smem_bytes(int D) {
+  return sizeof(float) * ((size_t)(BQ + 2 * BK) * (D | 1) + (size_t)BQ * LDP);
+}
+
 template <typename T, int DPT>
 int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Sk, int H,
            int KV, int D, int causal, int has_window, int window, int q_offset, float scale,
            const Strides& st, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * ((size_t)(BQ + 2 * BK) * (D | 1) + (size_t)BQ * LDP);
+  const size_t smem = smem_bytes(D);
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, DPT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
+  // a refusal is also the runtime's last error: clear it, or the next
+  // launch's cudaGetLastError would report it
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return static_cast<int>(err);
+  }
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
   flash_fwd_kernel<T, DPT><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
@@ -266,3 +277,6 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   return dispatch<float>(dpt, q, k, v, out, B, Sq, Sk, H, KV, D, causal, has_window, window,
                          q_offset, scale, st, s);
 }
+
+// The dynamic shared memory a block takes at head dim D, in bytes.
+extern "C" long long flash_attention_smem(int D) { return static_cast<long long>(smem_bytes(D)); }

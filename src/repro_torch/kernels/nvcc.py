@@ -47,7 +47,7 @@ def _nvcc() -> str:
 class Build(NamedTuple):
     lib: ctypes.CDLL
     seconds: Optional[float]  # None when the library was already built
-    ptxas_info: str  # nvcc's ``-Xptxas -v`` lines of this build
+    ptxas_info: str  # nvcc's ``-Xptxas -v`` lines of this build, spill counts included
 
 
 def build_library(name: str) -> Build:
@@ -76,7 +76,8 @@ def build_library(name: str) -> Build:
             raise RuntimeError(f"nvcc failed ({proc.returncode}) building {src}:\n{proc.stderr}")
         os.replace(tmp, target)
         seconds = time.perf_counter() - t0
-        info = "\n".join(ln for ln in proc.stderr.splitlines() if "ptxas info" in ln)
+        info = "\n".join(ln for ln in proc.stderr.splitlines()
+                         if "ptxas info" in ln or "spill" in ln)
     return Build(ctypes.CDLL(str(target)), seconds, info)
 
 

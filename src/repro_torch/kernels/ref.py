@@ -23,9 +23,11 @@ __all__ = [
     "morph_reconstruct_ref",
     "ssm_scan_ref",
     "ssm_scan_chunked",
+    "ssm_scan_three_pass",
     "ssm_scan_stub",
     "attention_ref",
     "flash_attention_blocked",
+    "uses_tensor_cores",
 ]
 
 
@@ -167,6 +169,66 @@ def ssm_scan_chunked(
     return torch.cat(ys, 1)[:, :s].to(out_dtype), hst
 
 
+def ssm_scan_three_pass(
+    x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+    h0: Optional[torch.Tensor] = None, *, chunk: int = 64,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The same recurrence in the CUDA kernel's three passes, every chunk at
+    once but for the carry, with L counted from each chunk's start:
+
+    (a) per chunk: L, the intra-chunk weights ``s`` (for a (B, S, H) decay
+        ``(c bᵀ) ⊙ exp(L_t − L_i)``, one exponential a token pair; for a
+        per-channel one ``Σ_n c exp(L_t − L_i) b``), ``y = s x``, the local
+        state ``(b ⊙ exp(L_last − L))ᵀ x`` and the decay ``exp(L_last)``;
+    (b) in order over the chunks: ``h_k = exp(L_last,k) ⊙ h_{k−1} + local_k``;
+    (c) per chunk: ``y += (c ⊙ exp(L)) h_{k−1}``; with a per-head decay,
+        ``exp(L_t)`` scales the rows of ``c h_{k−1}``.
+
+    Every exponent is ≤ 0. A ragged last chunk is padded with a = 1 and
+    b = c = x = 0."""
+    bsz, s, h, p = x.shape
+    n = b.shape[-1]
+    per_head = a.dim() == 3
+    cdim = min(chunk, s)
+    nc = -(-s // cdim)
+    pad = (0, 0, 0, 0, 0, nc * cdim - s)  # the S dim of (B, S, H, ·)
+
+    def chunks(t, value=0.0):  # (B, S, H, ·) -> (B, nc, C, H, ·)
+        t = F.pad(t.float(), pad if t.dim() == 4 else pad[2:], value=value)
+        return t.reshape(bsz, nc, cdim, *t.shape[2:])
+
+    xc, bc, cc = chunks(x), chunks(b), chunks(c)
+    L = torch.cumsum(torch.log(torch.clamp_min(chunks(a, 1.0), 1e-37)), dim=2)
+    Ln = L[..., None] if per_head else L  # (B, nc, C, H, 1 or N)
+    tri = torch.tril(torch.ones(cdim, cdim, dtype=torch.bool, device=x.device))
+    if per_head:
+        diff = (L[:, :, :, None] - L[:, :, None]).permute(0, 1, 4, 2, 3)  # (B, nc, H, t, i)
+        w = torch.where(tri, torch.exp(torch.where(tri, diff, 0.0)), 0.0)
+        sti = torch.einsum("bkthn,bkihn->bkhti", cc, bc) * w
+    else:
+        diff = L[:, :, :, None] - L[:, :, None]  # (B, nc, t, i, H, N)
+        w = torch.where(tri[:, :, None, None], torch.exp(torch.where(
+            tri[:, :, None, None], diff, 0.0)), 0.0)
+        sti = torch.einsum("bktihn,bkthn,bkihn->bkhti", w, cc, bc)
+    y = torch.einsum("bkhti,bkihp->bkthp", sti, xc)
+    local = torch.einsum("bkthn,bkthp->bkhnp", bc * torch.exp(Ln[:, :, -1:] - Ln), xc)
+    decay = torch.exp(Ln[:, :, -1])  # (B, nc, H, 1 or N)
+    hst = (
+        torch.zeros(bsz, h, n, p, dtype=torch.float32, device=x.device)
+        if h0 is None else h0.float()
+    )
+    carry = []
+    for k in range(nc):
+        carry.append(hst)
+        hst = decay[:, k, :, :, None] * hst + local[:, k]
+    hin = torch.stack(carry, 1)  # (B, nc, H, N, P): h_{k−1}
+    if per_head:  # exp(L_t) scales the rows of c·h
+        y = y + torch.exp(Ln) * torch.einsum("bkthn,bkhnp->bkthp", cc, hin)
+    else:
+        y = y + torch.einsum("bkthn,bkhnp->bkthp", cc * torch.exp(Ln), hin)
+    return y.reshape(bsz, nc * cdim, h, p)[:, :s].to(x.dtype), hst
+
+
 def ssm_scan_stub(
     x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     h0: Optional[torch.Tensor] = None,
@@ -217,6 +279,13 @@ def attention_ref(
     return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
 
 
+def uses_tensor_cores(dtype: torch.dtype, d: int) -> bool:
+    """Whether attention on these inputs takes the tensor-core kernel (and
+    its arithmetic): bf16 with a head dim that is a multiple of 16 up to
+    128. Everything else takes the CUDA-core kernel in IEEE fp32."""
+    return dtype == torch.bfloat16 and d % 16 == 0 and 16 <= d <= 128
+
+
 def flash_attention_blocked(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     causal: bool = True, window: Optional[int] = None, q_offset: int = 0,
@@ -231,13 +300,26 @@ def flash_attention_blocked(
 
     A masked logit adds 0 to the sum: that is what ``exp(-1e30 - m)`` gives
     as soon as the row has one key, and it makes a row with no key 0, as
-    in :func:`attention_ref`, whatever the block size."""
+    in :func:`attention_ref`, whatever the block size.
+
+    Where :func:`uses_tensor_cores` holds (bf16, D a multiple of 16 up to
+    128) it repeats the tensor-core kernel's arithmetic instead, which is the
+    JAX model's: the logits are q·k of the bf16 values in fp32, times the
+    scale in fp32, and the probabilities are rounded to bf16 before the P·V
+    product (the sum ``l`` keeps them in fp32). Each key block's
+    probabilities are rounded against the running max of the blocks so far,
+    so this result depends on ``block_k``; the default, 128, is the kernel's
+    key tile. Otherwise the CUDA-core kernel's: ``q·scale`` in fp32 and the
+    probabilities in fp32."""
     b, sq, h, d = q.shape
     sk, kv = k.shape[1], k.shape[2]
     rep = h // kv
     bq, bk = min(block_q, sq), min(block_k, sk)
     scale = 1.0 / math.sqrt(d)
-    qf = q.float().transpose(1, 2) * scale  # (B, H, Sq, D)
+    tensor_cores = uses_tensor_cores(q.dtype, d)
+    qf = q.float().transpose(1, 2)  # (B, H, Sq, D)
+    if not tensor_cores:
+        qf = qf * scale
     kf = k.float().repeat_interleave(rep, dim=2).transpose(1, 2)  # (B, H, Sk, D)
     vf = v.float().repeat_interleave(rep, dim=2).transpose(1, 2)
     out = torch.empty((b, h, sq, d), dtype=torch.float32, device=q.device)
@@ -262,12 +344,15 @@ def flash_attention_blocked(
             if window is not None:
                 mask &= kpos > qpos - window
             logits = qb @ kf[:, :, k_lo : k_lo + bk].transpose(-1, -2)
+            if tensor_cores:
+                logits = logits * scale
             logits = logits.masked_fill(~mask, _NEG)
             m_new = torch.maximum(m, logits.amax(-1, keepdim=True))
             p = torch.exp(logits - m_new).masked_fill(~mask, 0.0)
             corr = torch.exp(m - m_new)
             l = l * corr + p.sum(-1, keepdim=True)
-            acc = acc * corr + p @ vf[:, :, k_lo : k_lo + bk]
+            pv = p.to(torch.bfloat16).float() if tensor_cores else p
+            acc = acc * corr + pv @ vf[:, :, k_lo : k_lo + bk]
             m = m_new
         out[:, :, rows] = acc / torch.clamp_min(l, 1e-30)
     return out.transpose(1, 2).to(q.dtype)

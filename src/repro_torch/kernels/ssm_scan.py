@@ -8,11 +8,12 @@ out and what bounds it. It is built by :mod:`repro_torch.kernels.nvcc` at
 first use. There is no fallback: a missing ``nvcc``, a failed build or a
 failed launch raises.
 
-The plain versions, :func:`ssm_scan_ref` (one token at a time) and
-:func:`ssm_scan_chunked` (the kernel's arithmetic), live in
-:mod:`repro_torch.kernels.ref`; the dispatch in :mod:`repro_torch.kernels.ops`
-runs the chunked one on CPU tensors, and tests and ``chip_smoke.py`` hold
-the kernel against both.
+The plain versions, :func:`ssm_scan_ref` (one token at a time),
+:func:`ssm_scan_chunked` (the JAX package's chunked arithmetic) and
+:func:`ssm_scan_three_pass` (the kernel's passes: local states, the chunk
+scan, the outputs), live in :mod:`repro_torch.kernels.ref`; the dispatch in
+:mod:`repro_torch.kernels.ops` runs the chunked one on CPU tensors, and
+tests and ``chip_smoke.py`` hold the kernel against all three.
 """
 
 from __future__ import annotations
@@ -25,9 +26,43 @@ import torch
 
 from repro_torch.kernels import nvcc
 from repro_torch.kernels.nvcc import Build, LaunchCount
-from repro_torch.kernels.ref import ssm_scan_chunked, ssm_scan_ref
+from repro_torch.kernels.ref import ssm_scan_chunked, ssm_scan_ref, ssm_scan_three_pass
 
-__all__ = ["build", "LAUNCHES", "ssm_scan_cuda", "ssm_scan_chunked", "ssm_scan_ref"]
+__all__ = ["build", "LAUNCHES", "ssm_scan_cuda", "ssm_scan_chunked", "ssm_scan_ref",
+           "ssm_scan_three_pass", "scratch_shapes", "shared_memory_bytes", "blocks_per_sm"]
+
+THREADS = 256  # a block of each pass (csrc/ssm_scan.cu)
+SM_SHARED_BYTES = 233_472  # shared memory of an H100 SM (228 KB)
+BLOCK_SHARED_LIMIT = 232_448  # the most one block may take (227 KB)
+
+
+def _round4(v: int) -> int:
+    return (v + 3) // 4 * 4
+
+
+def scratch_shapes(b: int, s: int, h: int, n: int, p: int, chunk: int, per_head: bool):
+    """Shapes of the fp32 scratch the wrapper allocates: each chunk's state
+    (B, H, chunks, N, P), which the carry pass turns into its carry-in
+    state, and each chunk's decay exp(L_last) (B, H, chunks, 1 or N)."""
+    chunks = -(-s // min(chunk, s))
+    return (b, h, chunks, n, p), (b, h, chunks, 1 if per_head else n)
+
+
+def shared_memory_bytes(n: int, p: int, chunk: int, per_head: bool) -> Tuple[int, int]:
+    """Dynamic shared memory a block of the state pass and of the output
+    pass takes (csrc/ssm_scan.cu: ``state_smem``, ``output_smem``; the
+    library's ``ssm_scan_smem`` gives the source's own numbers), chunk
+    already cut to the sequence length."""
+    lt, p4, n4, nl = _round4(chunk) + 4, _round4(p), _round4(n), 1 if per_head else n
+    state = 4 * (chunk * p4 + chunk * n4 + nl * lt)
+    output = 4 * (chunk * p4 + n * lt + n * max(lt, p4) + chunk * lt + nl * lt)
+    return state, output
+
+
+def blocks_per_sm(smem_bytes: int, threads: int = THREADS) -> int:
+    """Blocks of one pass that fit an H100 SM by shared memory (1 KB of it
+    reserved a block) and by threads (2048 an SM); registers not counted."""
+    return min(SM_SHARED_BYTES // (smem_bytes + 1024), 2048 // threads)
 
 
 @functools.lru_cache(maxsize=None)
@@ -36,9 +71,11 @@ def build() -> Build:
     built = nvcc.build_library("ssm_scan")
     fn = built.lib.ssm_scan_fwd
     fn.argtypes = (
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p, ctypes.c_void_p]
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p, ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
+    built.lib.ssm_scan_smem.argtypes = [ctypes.c_int] * 5
+    built.lib.ssm_scan_smem.restype = ctypes.c_longlong
     return built
 
 
@@ -55,8 +92,12 @@ def ssm_scan_cuda(
     x (B, S, H, P), b and c (B, S, H, N) in one dtype, float32 or bfloat16;
     a float32, (B, S, H, N) or (B, S, H); all on one CUDA device, in any
     strides. Returns y (B, S, H, P) in x's dtype and h_final (B, H, N, P)
-    in float32. Launches once on the current stream and does not
-    synchronise.
+    in float32. A decay that is (B, S, H), or (B, S, H, N) with a zero
+    stride over N, takes the per-head path. Allocates the scratch of
+    :func:`scratch_shapes` and runs the kernel's three passes on the current
+    stream (one count of ``LAUNCHES``); does not synchronise. Raises when
+    a pass needs more shared memory than a block may take
+    (:func:`shared_memory_bytes`), as the launch refuses it.
     """
     dev = x.device
     if dev.type != "cuda" or any(t.device != dev for t in (a, b, c)):
@@ -83,14 +124,19 @@ def ssm_scan_cuda(
         raise ValueError(f"a must be (B,S,H) or (B,S,H,N), got {tuple(a.shape)}")
     if min(bsz, s, h, n, p) < 1 or chunk < 1:
         raise ValueError(f"empty shape or chunk: x {tuple(x.shape)}, N {n}, chunk {chunk}")
+    per_head = a.stride(3) == 0
+    state_shape, decay_shape = scratch_shapes(bsz, s, h, n, p, chunk, per_head)
     fn = build().lib.ssm_scan_fwd
     strides = (ctypes.c_longlong * 16)(*x.stride(), *a.stride(), *b.stride(), *c.stride())
     with torch.cuda.device(dev):
         y = torch.empty((bsz, s, h, p), dtype=x.dtype, device=dev)
         hout = torch.empty((bsz, h, n, p), dtype=torch.float32, device=dev)
+        state = torch.empty(state_shape, dtype=torch.float32, device=dev)
+        decay = torch.empty(decay_shape, dtype=torch.float32, device=dev)
         err = fn(
             x.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(), y.data_ptr(),
-            hout.data_ptr(), int(x.dtype == torch.bfloat16), bsz, s, h, n, p, chunk,
+            hout.data_ptr(), state.data_ptr(), decay.data_ptr(),
+            int(x.dtype == torch.bfloat16), int(per_head), bsz, s, h, n, p, chunk,
             ctypes.addressof(strides), torch.cuda.current_stream().cuda_stream,
         )
         if err != 0:

@@ -2,11 +2,12 @@
 decode (one query against the whole cache).
 
 Prefill follows the tensors' device. A CUDA tensor goes to the hand-written
-FlashAttention-2 kernel (:mod:`repro_torch.kernels.flash_attention`): every
-window in the port is a Python int, so every prefill is the static-window
-case that the JAX package sends to its Pallas kernel on the accelerator. A
-CPU tensor runs the JAX package's own streaming softmax over key chunks,
-with its bf16 operands and fp32 sums. Decode is plain PyTorch on either
+attention kernels (:mod:`repro_torch.kernels.flash_attention`; the model's
+bf16 q, k and v take the tensor-core one): every window in the port is a
+Python int, so every prefill is the static-window case that the JAX package
+sends to its Pallas kernel on the accelerator. A CPU tensor runs the JAX
+package's own streaming softmax over key chunks, with its bf16 operands and
+fp32 sums. Decode is plain PyTorch on either
 device, as the JAX package computes it outside any kernel.
 """
 

@@ -198,13 +198,45 @@ def test_cuda_kernel_matches_plain_fp32(card):
 
 @pytest.mark.gpu
 def test_cuda_kernel_bf16(card):
-    """bf16 in and out, fp32 inside: within one bf16 rounding of the
-    blocked version on the same bf16 inputs."""
+    """The CUDA-core kernel on bf16 in and out, fp32 inside: within one bf16
+    rounding of the blocked version's fp32 arithmetic on the same bf16
+    values. D = 80 would go to the tensor cores by dispatch, so the
+    CUDA-core kernel is called by name."""
     t = _t(qkv(1, 300, 300, 8, 4, 80, seed=6), card, torch.bfloat16)
-    got = tkernel.flash_attention_cuda(*t)
-    want = tref.flash_attention_blocked(*t)
+    before, wgmma = tkernel.LAUNCHES.value, tkernel.WGMMA_LAUNCHES.value
+    got = tkernel.flash_attention_simt(*t)
+    torch.cuda.synchronize()
+    assert tkernel.LAUNCHES.value == before + 1 and tkernel.WGMMA_LAUNCHES.value == wgmma
+    want = tref.flash_attention_blocked(*[x.float() for x in t]).to(torch.bfloat16)
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(_np(got), _np(want), rtol=2 ** -7, atol=2 ** -9)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [72, 24])
+def test_cuda_kernel_bf16_other_head_dims(card, d):
+    """bf16 with D not a multiple of 16 goes to the CUDA-core kernel by
+    dispatch: within one bf16 rounding of the blocked version (its fp32
+    arithmetic for such D) and within 2e-2 of the oracle."""
+    t = _t(qkv(1, 300, 300, 8, 4, d, seed=d), card, torch.bfloat16)
+    before, wgmma = tkernel.LAUNCHES.value, tkernel.WGMMA_LAUNCHES.value
+    got = tkernel.flash_attention_cuda(*t, window=120)
+    torch.cuda.synchronize()
+    assert tkernel.LAUNCHES.value == before + 1 and tkernel.WGMMA_LAUNCHES.value == wgmma
+    want = tref.flash_attention_blocked(*t, window=120)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=2 ** -7, atol=2 ** -9)
+    _close(got, tref.attention_ref(*[x.float() for x in t], window=120), 2e-2)
+
+
+@pytest.mark.gpu
+def test_shared_memory_formulas_match_the_sources(card):
+    """The Python formulas (used by the CPU tests) against the numbers the
+    built sources compute and ask the launch for."""
+    simt, wgmma = tkernel.build().lib, tkernel.build_wgmma().lib
+    for d in range(1, tkernel.MAX_HEAD_DIM + 1):
+        assert simt.flash_attention_smem(d) == tkernel.shared_memory_bytes(d), d
+    for d in range(16, tkernel.MAX_HEAD_DIM + 1, 16):
+        assert wgmma.flash_attention_wgmma_smem(d) == tkernel.wgmma_shared_memory_bytes(d), d
 
 
 @pytest.mark.gpu
@@ -213,3 +245,155 @@ def test_cuda_strided_inputs(card):
     fused = torch.randn(1, 70, 3, 4, 32, generator=torch.Generator().manual_seed(0)).to(card)
     q, k, v = fused.unbind(2)
     _close(tkernel.flash_attention_cuda(q, k, v), tref.attention_ref(q, k, v))
+
+
+# ---------------------------------------------------------------------------
+# The tensor-core path: bf16 with D a multiple of 16 up to 128
+# ---------------------------------------------------------------------------
+
+def _bf16_cases():
+    """(arrays, window, q_offset) of every reference case above, each with
+    queries aligned at the end of the keys."""
+    cases = [(qkv(c[0], c[1], c[1], *c[2:5], seed=c[1] + c[2]), None, 0) for c in CAUSAL]
+    cases += [(qkv(1, 96, 96, 2, 2, 32, seed=w), w, 0) for w in WINDOWS]
+    cases.append((qkv(1, 16, 64, 2, 2, 16, seed=9), None, 48))
+    cases += [(qkv(1, p[0], p[0], p[1], p[1], 16, seed=p[3]), p[2], 0) for p in PROPERTY]
+    return cases
+
+
+BF16_IDS = [f"causal{c[:5]}" for c in CAUSAL] + [f"window{w}" for w in WINDOWS] + ["q_offset"] + [
+    f"property{p}" for p in PROPERTY]
+
+
+def _bf16(arrays):
+    """bf16 copies, and fp32 copies of the same bf16 values."""
+    t = _t(arrays, dtype=torch.bfloat16)
+    return t, [x.float() for x in t]
+
+
+@pytest.mark.parametrize("case", range(len(BF16_IDS)), ids=BF16_IDS)
+def test_bf16_blocked_matches_jax_model(jx, case):
+    """bf16 inputs take the tensor-core arithmetic (bf16 operands, fp32
+    sums, P rounded to bf16): within the reference's bf16 bar of 2e-2 of the
+    JAX model's blocked_attention and of the fp32 oracle on the same bf16
+    values."""
+    import jax.numpy as jnp
+
+    from repro.models.attention import blocked_attention
+
+    arrays, window, q_offset = _bf16_cases()[case]
+    t, t32 = _bf16(arrays)
+    got = tref.flash_attention_blocked(*t, window=window, q_offset=q_offset)
+    assert got.dtype == torch.bfloat16
+    sk = arrays[1].shape[1]
+    want_jax = blocked_attention(*[jnp.asarray(a).astype(jnp.bfloat16) for a in arrays],
+                                 window=window or sk + q_offset, q_offset=q_offset, chunk=16)
+    _close(got, np.asarray(want_jax.astype(jnp.float32)), 2e-2)
+    _close(got, jx.ref(*[jx.jnp.asarray(_np(x)) for x in t32], causal=True, window=window), 2e-2)
+
+
+def test_bf16_blocked_rounds_p_only_on_the_tensor_core_path():
+    """bf16 with D = 24 takes the CUDA-core arithmetic: exactly the fp32
+    computation on the same values, cast to bf16. With D = 32 the
+    probabilities are rounded to bf16, which changes the result."""
+    for d, tensor_cores in ((24, False), (32, True)):
+        t, t32 = _bf16(qkv(1, 70, 70, 2, 1, d, seed=d))
+        assert tref.uses_tensor_cores(torch.bfloat16, d) is tensor_cores
+        got = tref.flash_attention_blocked(*t, window=30)
+        fp32_way = tref.flash_attention_blocked(*t32, window=30).to(torch.bfloat16)
+        assert torch.equal(got, fp32_way) is not tensor_cores
+
+
+@pytest.mark.parametrize("dtype,d,want", [
+    (torch.bfloat16, 16, True), (torch.bfloat16, 80, True), (torch.bfloat16, 128, True),
+    (torch.bfloat16, 8, False), (torch.bfloat16, 72, False), (torch.bfloat16, 144, False),
+    (torch.float32, 80, False), (torch.float32, 64, False), (torch.float16, 64, False),
+])
+def test_dispatch_rule_between_the_two_kernels(dtype, d, want):
+    """bf16 with D a multiple of 16 up to 128 goes to the tensor-core
+    kernel; fp32 (the 2e-5 bar) and other head dims to the CUDA-core one."""
+    assert tkernel.uses_tensor_cores(dtype, d) is want
+
+
+def test_wgmma_shared_memory_and_blocks_an_sm():
+    """At D = 80 a CTA takes 144,440 bytes (q tile 20,480, three stages of
+    128-key K and V tiles 122,880, barriers and 1 KB of alignment slack); at
+    D = 112 the ring still has three stages, at D = 128 two; every head dim
+    fits one CTA of 384 threads an SM."""
+    assert tkernel.wgmma_shared_memory_bytes(80) == 144_440
+    assert tkernel.wgmma_shared_memory_bytes(112) == 201_784
+    assert tkernel.wgmma_shared_memory_bytes(128) == 164_904
+    for d in range(16, 129, 16):
+        assert tkernel.wgmma_shared_memory_bytes(d) <= 227 * 1024
+    # blocks an SM by shared memory (228 KB, 1 KB reserved a block): one at D = 80
+    assert 233_472 // (tkernel.wgmma_shared_memory_bytes(80) + 1024) == 1
+    assert tkernel.wgmma_shared_memory_bytes(128) <= 227 * 1024
+    assert 2048 // tkernel.WGMMA_THREADS >= 1
+
+
+def test_tma_layout_checks():
+    """What the tensor-core kernel's TMA loads take: bf16, D contiguous, a
+    16-byte aligned start and strides that are multiples of 8 elements. The
+    wrapper raises on the rest; it makes no copy."""
+    ok = torch.zeros(1, 64, 4, 80, dtype=torch.bfloat16)
+    assert tkernel.tma_layout_error(ok) is None
+    fused = torch.zeros(2, 64, 3, 4, 32, dtype=torch.bfloat16)  # q, k, v of one projection
+    assert all(tkernel.tma_layout_error(x) is None for x in fused.unbind(2))
+    assert "bfloat16" in tkernel.tma_layout_error(ok.float())
+    assert "head dim stride" in tkernel.tma_layout_error(ok.transpose(1, 3))
+    flat = torch.zeros(1 + 64 * 4 * 80, dtype=torch.bfloat16)
+    assert "aligned" in tkernel.tma_layout_error(flat[1:].view(1, 64, 4, 80))
+    padded = torch.zeros(1, 64, 4, 84, dtype=torch.bfloat16)[..., :80]
+    assert "multiple of 8" in tkernel.tma_layout_error(padded)
+    # a dim of length 1 is never stepped over: its stride does not matter
+    assert tkernel.tma_layout_error(torch.zeros(3, 64, 4, 80, dtype=torch.bfloat16)[:1]) is None
+
+
+def test_wgmma_wrapper_refuses_cpu_tensors():
+    with pytest.raises(ValueError):
+        tkernel.flash_attention_wgmma(*_t(qkv(1, 8, 8, 1, 1, 16, seed=0), dtype=torch.bfloat16))
+
+
+@pytest.mark.gpu
+def test_wgmma_kernel_matches_plain_bf16(card):
+    """Every case in bf16 on the tensor-core kernel: within one bf16
+    rounding of the blocked version's bf16 arithmetic, and within 2e-2 of
+    the fp32 oracle on the same bf16 values."""
+    for name, arrays, window, q_offset in _card_cases():
+        t = _t(arrays, card, torch.bfloat16)
+        before, simt = tkernel.WGMMA_LAUNCHES.value, tkernel.LAUNCHES.value
+        got = tkernel.flash_attention_cuda(*t, window=window, q_offset=q_offset)
+        torch.cuda.synchronize()
+        assert tkernel.WGMMA_LAUNCHES.value == before + 1 and tkernel.LAUNCHES.value == simt, name
+        want = tref.flash_attention_blocked(*t, window=window, q_offset=q_offset)
+        np.testing.assert_allclose(_np(got), _np(want), rtol=2 ** -7, atol=2 ** -8, err_msg=name)
+        sq, sk = t[0].shape[1], t[1].shape[1]
+        if q_offset == sk - sq:
+            _close(got, tref.attention_ref(*[x.float() for x in t], window=window), 2e-2)
+
+
+@pytest.mark.gpu
+def test_fp32_stays_on_the_cuda_core_kernel(card):
+    t = _t(qkv(1, 64, 64, 2, 2, 32, seed=1), card)
+    before, wgmma = tkernel.LAUNCHES.value, tkernel.WGMMA_LAUNCHES.value
+    tkernel.flash_attention_cuda(*t)
+    assert tkernel.LAUNCHES.value == before + 1 and tkernel.WGMMA_LAUNCHES.value == wgmma
+
+
+@pytest.mark.gpu
+def test_wgmma_strided_inputs(card):
+    """q, k and v read in place by TMA from one fused (B, S, 3, H, D)
+    bf16 projection."""
+    fused = torch.randn(2, 150, 3, 4, 64, generator=torch.Generator().manual_seed(0))
+    q, k, v = fused.to(card, torch.bfloat16).unbind(2)
+    got = tkernel.flash_attention_wgmma(q, k, v, window=70)
+    want = tref.flash_attention_blocked(q, k, v, window=70)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=2 ** -7, atol=2 ** -8)
+
+
+@pytest.mark.gpu
+def test_wgmma_refuses_misaligned_input(card):
+    flat = torch.zeros(1 + 3 * 64 * 2 * 32, dtype=torch.bfloat16, device=card)
+    q, k, v = flat[1:].view(3, 1, 64, 2, 32).unbind(0)
+    with pytest.raises(ValueError, match="aligned"):
+        tkernel.flash_attention_wgmma(q, k, v)

@@ -1,4 +1,4 @@
-"""``repro_torch`` and ``chip_smoke.py`` stand alone: no jax, nothing of
+"""``repro_torch``, ``chip_smoke.py`` and ``tools/`` stand alone: no jax, nothing of
 ``repro``; and the copied runtime keeps its lock-guard discipline."""
 
 import ast
@@ -14,7 +14,8 @@ PORT = ROOT / "src" / "repro_torch"
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + sorted((ROOT / "tools").glob("*.py")))
 
 
 def _imported_modules(path):

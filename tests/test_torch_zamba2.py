@@ -504,11 +504,12 @@ def test_card_blocked_attention_runs_the_kernel(card):
     rng = np.random.default_rng(0)
     q, k, v = (torch.from_numpy(rng.normal(0, 1, (1, 40, 4, 32)).astype(np.float32))
                .to(card, torch.bfloat16) for _ in range(3))
-    before = fa.LAUNCHES.value
+    before, simt = fa.WGMMA_LAUNCHES.value, fa.LAUNCHES.value
     got = tattn.blocked_attention(q, k, v, window=40)
-    assert fa.LAUNCHES.value == before + 1
+    # bf16 with D = 32: the tensor-core kernel
+    assert fa.WGMMA_LAUNCHES.value == before + 1 and fa.LAUNCHES.value == simt
     want = tattn.blocked_attention(q.cpu(), k.cpu(), v.cpu(), window=40)
-    # the kernel keeps p in fp32 where the plain path rounds it to bf16
+    # both round p to bf16; the CPU path also rounds q·scale to bf16
     np.testing.assert_allclose(_np(got.cpu()), _np(want), rtol=2 ** -6, atol=2 ** -7)
     with pytest.raises(NotImplementedError, match="vlm"):
         tattn.blocked_attention(q, k, v, window=40, prefix_len=4)
