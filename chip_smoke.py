@@ -12,9 +12,13 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
 2. build: the ``morph_recon`` CUDA kernel from the checkout's source;
 3. kernel vs its plain PyTorch version on the card, ``torch.equal``, on
    random cases and on the real Seg2 and fill-holes inputs of the 4096²
-   tile, with the kernel's time, launches, bound and the plain time;
+   tile; each 4096² case also against the plain version of the kernel's
+   schedule (``morph_reconstruct_tiled``) and three repeated kernel calls,
+   with the kernel's time, launches, rounds, tile visits against tiles ×
+   rounds, host round trips, bound and the plain time;
 4. the single-tile SA study, ``repro_torch.app.run_study``, on a 4096²
-   tile with the 16-run MOAT design over Table I, counting kernel launches;
+   tile with the 16-run MOAT design over Table I, counting kernel launches,
+   the kernel's rounds and tile visits, and its host round trips;
 5. the same study code on card and CPU at 256², Dice within 1e-3;
 6. build: the ``ssm_scan`` CUDA kernel (chunk-parallel: three passes);
 7. ``ssm_scan`` vs its three plain versions on the card in fp32, on the
@@ -382,6 +386,25 @@ def random_case(h, w, seed):
     return torch.from_numpy(marker).cuda(), torch.from_numpy(mask).cuda()
 
 
+def recon_inputs(pipeline, tile: np.ndarray) -> dict:
+    """The two reconstructions of the default-parameter run on ``tile``, on
+    the card, as (marker, mask): Seg2's (gray - G1 under gray) and Seg3's
+    fill-holes (the complement of the thresholded residual, from its
+    border)."""
+    default = dict(pipeline.TABLE1_SPACE.default())
+    st = {"raw": torch.from_numpy(tile).cuda()}
+    st = pipeline._t_normalize(st)
+    st = pipeline._t_background(st, default["B"], default["G"], default["R"])
+    st = pipeline._t_rbc(st, default["T1"], default["T2"])
+    gray = st["gray"]
+    seg2_marker = torch.clamp_min(gray - float(default["G1"]), 0.0)
+    residual = pipeline._t_recon(st, default["G1"], default["RC"])["residual"]
+    inv = (~(residual > float(default["G2"]) * 0.5)).to(torch.float32)
+    border = torch.zeros_like(inv)
+    border[0, :], border[-1, :], border[:, 0], border[:, -1] = inv[0, :], inv[-1, :], inv[:, 0], inv[:, -1]
+    return {"seg2": (seg2_marker, gray), "fill-holes": (border, inv)}
+
+
 def mosaic_tile(pipeline) -> np.ndarray:
     """SIZE² tile as a mosaic of SUB² synthetic tiles with seeds 0, 1, ...
     in row-major order (one SIZE² synthetic tile costs about an hour of
@@ -446,47 +469,61 @@ def main() -> int:
     print(f"tile {tile.shape} {tile.dtype}: {time.perf_counter() - t0:.1f} s host")
 
     default = dict(pipeline.TABLE1_SPACE.default())
-    st = {"raw": torch.from_numpy(tile).cuda()}
-    st = pipeline._t_normalize(st)
-    st = pipeline._t_background(st, default["B"], default["G"], default["R"])
-    st = pipeline._t_rbc(st, default["T1"], default["T2"])
-    gray = st["gray"]
-    seg2_marker = torch.clamp_min(gray - float(default["G1"]), 0.0)
-    residual = pipeline._t_recon(st, default["G1"], default["RC"])["residual"]
-    inv = (~(residual > float(default["G2"]) * 0.5)).to(torch.float32)
-    border = torch.zeros_like(inv)
-    border[0, :], border[-1, :], border[:, 0], border[:, -1] = inv[0, :], inv[-1, :], inv[:, 0], inv[:, -1]
-    del st, residual
-
     cases = {f"random {h}x{w}": random_case(h, w, seed=h + w) for h, w in
              [(65, 33), (1, 1), (31, 1000), (SIZE, SIZE)]}
-    cases[f"seg2 {SIZE}x{SIZE}"] = (seg2_marker, gray)
-    cases[f"fill-holes {SIZE}x{SIZE}"] = (border, inv)
+    for name, case in recon_inputs(pipeline, tile).items():
+        cases[f"{name} {SIZE}x{SIZE}"] = case
     max_err = 0.0
     timing = {}
+    th, tw = morph_recon.TILE
+    check(morph_recon.kernel_tile()[:2] == (th, tw),
+          f"the kernel's tile {morph_recon.kernel_tile()[:2]} == TILE {(th, tw)}")
+    counters = (morph_recon.LAUNCHES, morph_recon.ROUNDS, morph_recon.TILE_VISITS,
+                morph_recon.HOST_ROUND_TRIPS)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)  # the stream stays busy for some milliseconds
+    morph_recon.morph_reconstruct_cuda(*cases["random 65x33"], conn=8)
+    check(not torch.cuda.current_stream().query(), "a call returns while the card is busy")
+    print("a call returns while the card is still busy: it makes no host round trip")
     for name, (mk, ms) in cases.items():
         for conn in (4, 8):
-            before = morph_recon.LAUNCHES.value
-            got = morph_recon.morph_reconstruct_cuda(mk, ms, conn=conn)
             torch.cuda.synchronize()
-            launches = morph_recon.LAUNCHES.value - before
+            before = [c.value for c in counters]
+            got = morph_recon.morph_reconstruct_cuda(mk, ms, conn=conn)
+            launches, rounds, visits, trips = (c.value - b for c, b in zip(counters, before))
             want = morph_recon.morph_reconstruct_ref(mk, ms, conn=conn)
             check(torch.equal(got, want), f"morph_recon == plain on {name} conn={conn} "
                   f"({int((got != want).sum())} pixels differ)")
+            check(launches == 1 and trips == 0,
+                  f"one launch ({launches}) and no host round trip ({trips}) a call")
             max_err = max(max_err, float((got - want).abs().max()))
-            line = f"{name} conn={conn}: equal, {launches} launches"
+            line = f"{name} conn={conn}: equal, {launches} launch, {trips} host round trips"
             if mk.numel() == SIZE * SIZE:
+                tiled = morph_recon.morph_reconstruct_tiled(mk, ms, conn, (th, tw))
+                check(torch.equal(got, tiled.result),
+                      f"morph_recon == the plain tiled schedule on {name} conn={conn}")
+                for rep in range(3):  # the visits' order changes from call to call
+                    again = morph_recon.morph_reconstruct_cuda(mk, ms, conn=conn)
+                    check(torch.equal(again, want), f"repeat {rep} equal on {name} conn={conn}")
                 ms_k = cuda_ms(lambda: morph_recon.morph_reconstruct_cuda(mk, ms, conn=conn), 5)
                 ms_p = cuda_ms(lambda: morph_recon.morph_reconstruct_ref(mk, ms, conn=conn), 2)
                 bound = recon_bound_ms(mk.numel(), conn)
-                timing[(name, conn)] = (ms_k, ms_p, bound, launches)
-                line += f"; kernel {ms_k:.3f} ms, plain {ms_p:.3f} ms, bound {bound:.4f} ms (bytes)"
+                n_tiles = -(-mk.shape[0] // th) * -(-mk.shape[1] // tw)
+                timing[(name, conn)] = (ms_k, ms_p, bound, launches, rounds, visits)
+                check(visits < n_tiles * rounds or rounds == 1,
+                      f"tile visits {visits} < tiles x rounds {n_tiles * rounds}")
+                line += (f"; rounds {rounds}, tile visits {visits} of tiles x rounds "
+                         f"{n_tiles} x {rounds} = {n_tiles * rounds} "
+                         f"({visits / (n_tiles * rounds):.3f}); plain tiled schedule equal, "
+                         f"rounds {tiled.rounds}, tile visits {tiled.tile_visits}; 3 repeats "
+                         f"equal; kernel {ms_k:.4f} ms, plain {ms_p:.3f} ms, bound "
+                         f"{bound:.4f} ms (bytes), {ms_k / bound:.1f}x bound")
             print(line, flush=True)
     print("kernels: morph_recon")
     print(f"max_abs_err {max_err}")
     print("library call: none (no one PyTorch call computes reconstruction by dilation; "
           "max_pool2d is one dilation step)")
-    del cases, seg2_marker, gray, border, inv
+    del cases
     torch.cuda.empty_cache()
 
     # -- 4. the study ------------------------------------------------------
@@ -514,12 +551,14 @@ def main() -> int:
         setattr(pipeline, name, timed(name[3:], getattr(pipeline, name)))
 
     torch.cuda.reset_peak_memory_stats()
-    morph_recon.LAUNCHES.reset()
+    torch.cuda.synchronize()
+    for c in counters:
+        c.reset()
     t0 = time.perf_counter()
     out = pipeline.run_study(tile, sets, strategy="rmsr")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    study_launches = morph_recon.LAUNCHES.value
+    study_launches, study_rounds, study_visits, study_trips = (c.value for c in counters)
     check(out["tasks_total"] == 8 * len(sets) == 128, f"tasks_total {out['tasks_total']} == 128")
     check(out["planned_tasks_executed"] == 71,
           f"planned tasks_executed {out['planned_tasks_executed']} == 71")
@@ -528,7 +567,8 @@ def main() -> int:
     print(f"wall {wall:.3f} s; tasks_total {out['tasks_total']}; planned tasks_executed "
           f"{out['planned_tasks_executed']}; measured tasks_executed {out['tasks_executed']}; "
           f"cache_hits {out['cache_hits']}; reuse_fraction {out['reuse_fraction']}")
-    print(f"morph_recon launches in the study: {study_launches}")
+    print(f"morph_recon in the study: {study_launches} launches, {study_rounds} rounds, "
+          f"{study_visits} tile visits, {study_trips} host round trips in the wrapper")
     print(f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     print("dice " + " ".join(f"{d:.6f}" for d in out["dice"]))
     print("per-task seconds (tasks of the study and its reference run; each timed between syncs):")
@@ -831,7 +871,7 @@ def main() -> int:
     card_vs_cpu(configs.reduced_config(zcfg), sa_serve, init_params, prefill)
 
     # -- results -----------------------------------------------------------
-    ms_k, ms_p, bound, _ = timing[(f"seg2 {SIZE}x{SIZE}", int(default["RC"]))]
+    ms_k, ms_p, bound = timing[(f"seg2 {SIZE}x{SIZE}", int(default["RC"]))][:3]
     print(json.dumps({"kernels": [{
         "name": "morph_recon",
         "route": "cuda",
@@ -844,6 +884,9 @@ def main() -> int:
         "bound_ms": bound,
         "bound_by": "bytes",
         "library_ms": None,
+        "fill_holes_ms": timing[(f"fill-holes {SIZE}x{SIZE}", int(default["FH"]))][0],
+        "rounds": study_rounds,
+        "tile_visits": study_visits,
     }, {
         "name": "ssm_scan",
         "route": "cuda",

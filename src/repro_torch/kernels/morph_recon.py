@@ -1,47 +1,126 @@
 """Morphological reconstruction by dilation: the hand-written CUDA kernel for
 Hopper (``csrc/morph_recon.cu``), its build, its wrapper, and its plain
-PyTorch version.
+PyTorch versions.
 
 The kernel replaces the Pallas TPU kernel of ``repro.kernels.morph_recon``
-(``_recon_sweep_kernel``, ``tile_sweep``, ``morph_reconstruct_pallas``). The
-source says how it is laid out and why its result is exact. It is built by
-:mod:`repro_torch.kernels.nvcc` at first use. There is no fallback: a
-missing ``nvcc``, a failed build or a failed launch raises.
+(``_recon_sweep_kernel``, ``tile_sweep``, ``morph_reconstruct_pallas``). It
+is one persistent, cooperative launch a call that runs rounds over a
+worklist of tiles, each visit raster and anti-raster passes with a warp
+scan along the rows; the source says how it is laid out and why its result
+is exact. It is built by :mod:`repro_torch.kernels.nvcc` at first use. There
+is no fallback: a missing ``nvcc``, a failed build or a failed launch raises.
 
 The plain version, :func:`morph_reconstruct_ref`, is the one the dispatch in
 :mod:`repro_torch.kernels.ops` runs on CPU tensors; tests and ``chip_smoke.py``
-hold the kernel against it.
+hold the kernel against it. :func:`morph_reconstruct_tiled` repeats the
+kernel's schedule (tiles, rounds, worklist, passes) in PyTorch.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import threading
+from typing import Dict, Tuple
 
 import torch
 
 from repro_torch.kernels import nvcc
 from repro_torch.kernels.nvcc import NVCC_FLAGS, Build, LaunchCount
-from repro_torch.kernels.ref import morph_reconstruct_ref
+from repro_torch.kernels.ref import MAX_PASSES, morph_reconstruct_ref, morph_reconstruct_tiled
 
-__all__ = ["build", "LAUNCHES", "NVCC_FLAGS", "morph_reconstruct_cuda", "morph_reconstruct_ref"]
+__all__ = [
+    "build", "LAUNCHES", "ROUNDS", "TILE_VISITS", "HOST_ROUND_TRIPS", "MAX_PASSES", "TILE",
+    "NVCC_FLAGS", "morph_reconstruct_cuda", "morph_reconstruct_ref", "morph_reconstruct_tiled",
+]
 
-# Sweeps a tile may run in one launch before it hands over to the next.
-MAX_INNER = 64
+# The kernel's tile (rows, columns), as csrc/morph_recon.cu fixes it
+# (``morph_recon_tile``); MAX_PASSES (from kernels/ref.py) is the passes a
+# visit may run before its tile waits for the next round.
+TILE = (16, 128)
 
 
 @functools.lru_cache(maxsize=None)
 def build() -> Build:
     """Build (once per source and flag set) and load the kernel's library."""
     built = nvcc.build_library("morph_recon")
-    fn = built.lib.morph_recon_sweep
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    lib = built.lib
+    lib.morph_recon.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.morph_recon.restype = ctypes.c_int
+    lib.morph_recon_tile.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
+    lib.morph_recon_tile.restype = None
+    lib.morph_recon_scratch_ints.argtypes = [ctypes.c_int] * 2
+    lib.morph_recon_scratch_ints.restype = ctypes.c_longlong
+    lib.morph_recon_max_blocks.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 2
+    lib.morph_recon_max_blocks.restype = ctypes.c_int
     return built
 
 
-# one per outer fixpoint step of morph_reconstruct_cuda
+@functools.lru_cache(maxsize=None)
+def kernel_tile() -> Tuple[int, int, int]:
+    """The tile (rows, columns) of the built kernel, and its warps a block
+    (each visits tiles on its own)."""
+    th, tw, warps = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    build().lib.morph_recon_tile(ctypes.byref(th), ctypes.byref(tw), ctypes.byref(warps))
+    return th.value, tw.value, warps.value
+
+
+@functools.lru_cache(maxsize=None)
+def _max_blocks(conn: int, device: int) -> Tuple[int, int]:
+    blocks, smem = ctypes.c_int(), ctypes.c_int()
+    with torch.cuda.device(device):
+        err = build().lib.morph_recon_max_blocks(conn, ctypes.byref(blocks), ctypes.byref(smem))
+    if err != 0:
+        raise RuntimeError(f"morph_recon occupancy query failed: CUDA error {err}")
+    return blocks.value, smem.value
+
+
+def max_blocks(conn: int) -> Tuple[int, int]:
+    """(the most blocks that can be resident at once for ``conn`` on the
+    current device, the shared memory bytes a block takes); asked of the
+    card once per connectivity and device."""
+    return _max_blocks(conn, torch.cuda.current_device())
+
+
+class DeviceTotal:
+    """One of the counts the kernel adds to on the card (rounds, tile
+    visits), summed over calls. Reading ``value`` waits for the card; a call
+    of the kernel does not."""
+
+    _lock = threading.Lock()
+    _totals: Dict[torch.device, torch.Tensor] = {}  # guard: _lock
+
+    def __init__(self, index: int) -> None:
+        self._index = index
+
+    @classmethod
+    def buffer(cls, device: torch.device) -> torch.Tensor:
+        """The (rounds, visits) int64 pair the kernel adds to on ``device``."""
+        with cls._lock:
+            if device not in cls._totals:
+                cls._totals[device] = torch.zeros(2, dtype=torch.int64, device=device)
+            return cls._totals[device]
+
+    @property
+    def value(self) -> int:
+        with self._lock:
+            totals = list(self._totals.values())
+        return sum(int(t[self._index]) for t in totals)
+
+    def reset(self) -> None:
+        with self._lock:
+            for t in self._totals.values():
+                t[self._index] = 0
+
+
+# one per call of morph_reconstruct_cuda (one cooperative launch)
 LAUNCHES = LaunchCount()
+# the kernel's rounds and tile visits, summed over calls on the card
+ROUNDS = DeviceTotal(0)
+TILE_VISITS = DeviceTotal(1)
+# waits on the card inside the wrapper: none, so this stays 0 (a guard
+# against a per-call or per-round host round trip coming back)
+HOST_ROUND_TRIPS = LaunchCount()
 
 
 def morph_reconstruct_cuda(
@@ -51,9 +130,16 @@ def morph_reconstruct_cuda(
 
     Takes float32, 2-D, contiguous tensors on one CUDA device, finite
     (NaN is outside the contract: the kernel's fmaxf/fminf drop NaN where
-    torch.maximum propagates it). Launches on the current stream and
-    synchronises once per launch, to read the changed-flag.
+    torch.maximum propagates it). Launches once on the current stream and
+    does not wait for the card.
     """
+    return _launch(marker, mask, conn, grid_blocks=0)
+
+
+def _launch(marker: torch.Tensor, mask: torch.Tensor, conn: int, *, grid_blocks: int):
+    """One launch; ``grid_blocks`` 0 sizes the grid to the co-resident limit
+    (no more blocks than the tiles need); a number above the limit raises,
+    since ``grid.sync()`` would wait for blocks that cannot start."""
     if marker.device.type != "cuda" or mask.device != marker.device:
         raise ValueError(
             f"marker and mask must be on one CUDA device, got {marker.device} and {mask.device}"
@@ -69,23 +155,26 @@ def morph_reconstruct_cuda(
     h, w = marker.shape
     if h == 0 or w == 0:
         return torch.empty_like(mask)
-    fn = build().lib.morph_recon_sweep
+    lib = build().lib
     with torch.cuda.device(marker.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        bufs = (torch.empty_like(mask), torch.empty_like(mask))
-        changed = torch.empty(1, dtype=torch.int32, device=marker.device)
-        src = marker
-        step = 0
-        while True:
-            dst = bufs[step % 2]
-            err = fn(
-                src.data_ptr(), mask.data_ptr(), dst.data_ptr(), changed.data_ptr(),
-                h, w, conn, MAX_INNER, stream,
+        limit, _ = max_blocks(conn)
+        th, tw, warps = kernel_tile()
+        need = -(-(-(-h // th) * -(-w // tw)) // warps)  # a warp a tile
+        grid = grid_blocks or min(need, limit)
+        if grid > limit:
+            raise RuntimeError(
+                f"morph_recon: a grid of {grid} blocks exceeds the {limit} that can be "
+                "resident at once; grid.sync would deadlock"
             )
-            if err != 0:
-                raise RuntimeError(f"morph_recon_sweep launch failed: CUDA error {err}")
-            LAUNCHES.add()
-            if int(changed.item()) == 0:
-                return dst
-            src = dst
-            step += 1
+        stream = torch.cuda.current_stream().cuda_stream
+        out = torch.empty_like(mask)
+        scratch = torch.zeros(lib.morph_recon_scratch_ints(h, w), dtype=torch.int32,
+                              device=marker.device)
+        totals = DeviceTotal.buffer(marker.device)
+        err = lib.morph_recon(marker.data_ptr(), mask.data_ptr(), out.data_ptr(),
+                              scratch.data_ptr(), totals.data_ptr(), h, w, conn, MAX_PASSES,
+                              grid, stream)
+        if err != 0:
+            raise RuntimeError(f"morph_recon launch failed: CUDA error {err}")
+        LAUNCHES.add()
+    return out

@@ -10,7 +10,7 @@ here runs on any device.
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -21,6 +21,9 @@ __all__ = [
     "dilate",
     "erode",
     "morph_reconstruct_ref",
+    "clamp_scan",
+    "TiledRecon",
+    "morph_reconstruct_tiled",
     "ssm_scan_ref",
     "ssm_scan_chunked",
     "ssm_scan_three_pass",
@@ -79,6 +82,210 @@ def morph_reconstruct_ref(
         if not bool(torch.any(new != m)):
             return new
         m = new
+
+
+def clamp_scan(a: torch.Tensor, b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Inclusive scan, along the last dim, of the clamp functions
+    ``f_x(u) = min(max(u, a[x]), b[x])``, earliest first: returns (A, B)
+    with ``f_x ∘ … ∘ f_0 = (u ↦ min(max(u, A[x]), B[x]))``.
+
+    Clamps are closed under composition: ``(a1, b1)`` then ``(a2, b2)`` is
+    ``(max(a1, a2), min(max(b1, a2), b2))``, so the scan is exact (only max
+    and min touch the values). It takes the CUDA kernel's steps: offsets
+    1, 2, 4, … with the identity ``(-inf, +inf)`` shifted in (the kernel's
+    lanes without a source compose their pair with itself, which is the
+    same: a clamp composed with itself is itself). ``v[x] = min(max(v[x-1], a[x]), b[x])``
+    from a carry ``c`` is then ``min(max(c, A[x]), B[x])``."""
+    n = a.shape[-1]
+    d = 1
+    while d < n:
+        pad = [0] * (2 * (a.dim() - 1))
+        a1 = F.pad(a[..., :-d], [d, 0] + pad, value=float("-inf"))
+        b1 = F.pad(b[..., :-d], [d, 0] + pad, value=float("inf"))
+        a, b = torch.maximum(a1, a), torch.minimum(torch.maximum(b1, a), b)
+        d *= 2
+    return a, b
+
+
+def _raster_pass(
+    v: torch.Tensor, mk: torch.Tensor, conn: int, dirty: torch.Tensor
+) -> torch.Tensor:
+    """One raster pass over a batch of tiles, in place: ``v`` (n, H+2, W+2)
+    with a one-pixel halo that stays fixed, ``mk`` (n, H, W). Row by row
+    from the top, each pixel takes the max over itself and the new row above
+    (conn 8: three pixels, conn 4: one), then the row takes
+    ``v[x] = min(max(v[x], v[x-1]), mask[x])`` from its left halo pixel by
+    :func:`clamp_scan`.
+
+    ``dirty`` (n, H) bool: the rows that changed since the tile was last
+    left stable by a raster pass (all of them if it never was). A row that
+    is not dirty and whose row above neither is dirty nor changed in this
+    pass has the inputs it had then, so it is left as it is (a raster pass
+    is idempotent). Returns the rows this pass changed, (n, H) bool."""
+    changed = torch.zeros_like(dirty)
+    for y in range(1, v.shape[1] - 1):
+        run = dirty[:, y - 1]
+        if y > 1:
+            run = run | dirty[:, y - 2] | changed[:, y - 2]
+        above = v[:, y - 1]
+        up = above[:, 1:-1]
+        if conn == 8:
+            up = torch.maximum(torch.maximum(above[:, :-2], up), above[:, 2:])
+        old = v[:, y, 1:-1]
+        acc, lim = clamp_scan(torch.maximum(old, up), mk[:, y - 1])
+        new = torch.minimum(torch.maximum(v[:, y, :1], acc), lim)
+        new = torch.where(run[:, None], new, old)
+        changed[:, y - 1] = (new != old).any(-1)
+        v[:, y, 1:-1] = new
+    return changed
+
+
+# passes a visit of the CUDA kernel may run before its tile waits for the
+# next round (``kernels/morph_recon.py`` passes it to the kernel)
+MAX_PASSES = 4
+
+
+def _lifts(q: torch.Tensor, moved: torch.Tensor, p: torch.Tensor, pmask: torch.Tensor,
+           conn: int) -> torch.Tensor:
+    """Along a tile's border (last dim): which moved border pixels ``q`` can
+    raise a pixel of the neighbour's border next to them (the same position,
+    and with conn 8 one to each side): ``min(q, pmask) > p``."""
+    out = torch.minimum(q, pmask) > p
+    if conn == 8:
+        out[..., 1:] |= torch.minimum(q[..., 1:], pmask[..., :-1]) > p[..., :-1]
+        out[..., :-1] |= torch.minimum(q[..., :-1], pmask[..., 1:]) > p[..., 1:]
+    return out & moved
+
+
+class TiledRecon(NamedTuple):
+    result: torch.Tensor
+    rounds: int
+    tile_visits: int
+
+
+def morph_reconstruct_tiled(
+    marker: torch.Tensor, mask: torch.Tensor, conn: int = 8,
+    tile: Union[int, Tuple[int, int]] = 32, *, max_passes: int = MAX_PASSES,
+) -> TiledRecon:
+    """Reconstruction by dilation in the CUDA kernel's schedule: the image
+    cut into ``tile`` (rows, columns) tiles, rounds over a worklist of
+    tiles, raster and anti-raster passes inside a tile. Returns the result
+    (equal to :func:`morph_reconstruct_ref`) and the rounds and tile visits
+    it took.
+
+    Round 1 visits every tile of ``min(marker, mask)``. A visit reads the
+    tile and its one-pixel halo (outside the image: -inf), then alternates
+    raster and anti-raster passes (:func:`_raster_pass`; the anti-raster one
+    on the tile turned by 180°) until a pass after the first changes
+    nothing, or ``max_passes`` have run. A pass runs only the rows whose
+    inputs changed since that direction last left the tile stable, and the
+    rows after them that change (:func:`_raster_pass`).
+
+    Tile t is visited in round k+1 when its own visit in round k hit the cap
+    with its last pass still changing (then every row is dirty), or when a
+    neighbour's visit in round k changed a pixel q of t's halo that can
+    raise a pixel p of t next to it: ``min(q, mask[p]) > p``, with p as the
+    neighbour read it at its visit's start (a value never above p's
+    current one, so the test can only wake too often). The neighbour says
+    which: a row of t's left or right halo column, t's halo row above or
+    below, or (conn 8) a corner. The rows that read those pixels start
+    dirty: a raster pass reads the left column (each row's carry), the row
+    above (row 0) and, with conn 8, the side columns one row up; an
+    anti-raster pass the mirror image. The call ends on an empty worklist. Every visit of a round reads the state at
+    the round's start and writes at its end; the kernel's visits read and
+    write as they go, so its rounds and visits may differ, never its
+    result. ``max_passes`` must be at least 2.
+    """
+    if conn not in (4, 8):
+        raise ValueError(f"connectivity must be 4 or 8, got {conn}")
+    if max_passes < 2:
+        raise ValueError(f"max_passes must be at least 2, got {max_passes}")
+    th, tw = (tile, tile) if isinstance(tile, int) else tile
+    mask = mask.to(torch.float32)
+    h, w = mask.shape
+    if h == 0 or w == 0:
+        return TiledRecon(mask.clone(), 0, 0)
+    ny, nx = -(-h // th), -(-w // tw)
+    inf = float("inf")
+    # the image padded to whole tiles and a one-pixel ring, all -inf
+    m = F.pad(torch.minimum(marker.to(torch.float32), mask),
+              (1, nx * tw - w + 1, 1, ny * th - h + 1), value=-inf)
+    mkp = F.pad(mask, (1, nx * tw - w + 1, 1, ny * th - h + 1), value=-inf)
+    dev = mask.device
+    ry = torch.arange(th + 2, device=dev)
+    rx = torch.arange(tw + 2, device=dev)
+
+    def flags():  # what changed in each tile's halo, on a ring of padding tiles
+        side = torch.zeros(ny + 2, nx + 2, th, dtype=torch.bool, device=dev)
+        edge = torch.zeros(ny + 2, nx + 2, dtype=torch.bool, device=dev)
+        return {"left": side, "right": side.clone(), "above": edge, "below": edge.clone(),
+                "corner_above": edge.clone(), "corner_below": edge.clone(), "all": edge.clone()}
+
+    woken = flags()
+    woken["all"][1:-1, 1:-1] = True  # round 1: every tile, every row
+    queue = torch.arange(ny * nx, device=dev)
+    rounds = visits = 0
+    while queue.numel():
+        rounds += 1
+        visits += queue.numel()
+        ty, tx = queue // nx + 1, queue % nx + 1
+        got = {name: f[ty, tx] for name, f in woken.items()}
+        rows = ((queue // nx) * th)[:, None, None] + ry[None, :, None]
+        cols = ((queue % nx) * tw)[:, None, None] + rx[None, None, :]
+        v = m[rows, cols]  # (n, th+2, tw+2), the halo included
+        start = v.clone()
+        mk = mkp[rows[:, 1:-1], cols[:, :, 1:-1]]
+        settled = torch.zeros(queue.numel(), dtype=torch.bool, device=dev)
+        # rows whose inputs changed since the last raster / anti-raster pass
+        dirty_fwd, dirty_bwd = got["left"].clone(), got["right"].clone()
+        dirty_fwd[:, 0] |= got["above"] | got["corner_above"]
+        dirty_bwd[:, -1] |= got["below"] | got["corner_below"]
+        if conn == 8:
+            sides = got["left"] | got["right"]
+            dirty_fwd[:, 1:] |= sides[:, :-1]
+            dirty_bwd[:, :-1] |= sides[:, 1:]
+        dirty_fwd |= got["all"][:, None]
+        dirty_bwd |= got["all"][:, None]
+        for p in range(max_passes):
+            if p % 2 == 0:
+                rows_moved = _raster_pass(v, mk, conn, dirty_fwd)
+                dirty_bwd = dirty_bwd | rows_moved if p == 0 else rows_moved
+            else:  # anti-raster: the raster pass on the tile turned by 180°
+                vr = v.flip(1, 2)
+                rows_moved = _raster_pass(vr, mk.flip(1, 2), conn, dirty_bwd.flip(1)).flip(1)
+                v = vr.flip(1, 2)
+                dirty_fwd = rows_moved
+            if p > 0:
+                settled |= ~rows_moved.any(-1)
+                if bool(settled.all()):
+                    break
+            # a settled tile's passes change nothing more: leave it as it is
+        m[rows[:, 1:-1], cols[:, :, 1:-1]] = v[:, 1:-1, 1:-1]
+        new = v[:, 1:-1, 1:-1]
+        moved = new != start[:, 1:-1, 1:-1]
+        mkh = mkp[rows, cols]  # the mask of the tile and its halo
+        woken = flags()
+        woken["all"][ty, tx] = ~settled
+        # the tile above: its row below; the tile to the left: its right column
+        woken["below"][ty - 1, tx] = _lifts(new[:, 0], moved[:, 0], start[:, 0, 1:-1],
+                                            mkh[:, 0, 1:-1], conn).any(-1)
+        woken["above"][ty + 1, tx] = _lifts(new[:, -1], moved[:, -1], start[:, -1, 1:-1],
+                                            mkh[:, -1, 1:-1], conn).any(-1)
+        woken["right"][ty, tx - 1] = _lifts(new[:, :, 0], moved[:, :, 0], start[:, 1:-1, 0],
+                                            mkh[:, 1:-1, 0], conn)
+        woken["left"][ty, tx + 1] = _lifts(new[:, :, -1], moved[:, :, -1], start[:, 1:-1, -1],
+                                           mkh[:, 1:-1, -1], conn)
+        if conn == 8:  # a corner pixel is in the halo of the diagonal neighbour
+            for (a, b), (dy, dx) in (((0, 0), (-1, -1)), ((0, -1), (-1, 1)),
+                                     ((-1, 0), (1, -1)), ((-1, -1), (1, 1))):
+                lift = moved[:, a, b] & (torch.minimum(new[:, a, b], mkh[:, a, b]) > start[:, a, b])
+                name = "corner_below" if dy < 0 else "corner_above"
+                woken[name][ty + dy, tx + dx] |= lift
+        live = torch.zeros(ny + 2, nx + 2, dtype=torch.bool, device=dev)
+        for name, f in woken.items():
+            live |= f.any(-1) if f.dim() == 3 else f
+        queue = torch.nonzero(live[1:-1, 1:-1].reshape(-1)).reshape(-1)
+    return TiledRecon(m[1 : h + 1, 1 : w + 1].clone(), rounds, visits)
 
 
 # ---------------------------------------------------------------------------

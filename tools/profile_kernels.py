@@ -6,12 +6,16 @@
   Zamba2 2.7B passes them; its three passes (state, carry, output) apart;
 - ``ssm_scan`` at RWKV-6's shape (1, 1024, 32, 64), bf16, per-channel
   decay;
-- attention at (1, 4096, 32, 80) bf16, causal (the tensor-core kernel).
+- attention at (1, 4096, 32, 80) bf16, causal (the tensor-core kernel);
+- ``morph_recon`` at 4096², conn 4 and 8, on ``chip_smoke.py``'s random
+  case of phase 3 (``random_case(4096, 4096, seed=8192)``).
 
-Inputs are random, drawn from a seed on the card. Each wrapper is called
-once to build and warm up, then ``REPS`` times under the profiler; the
-script prints each kernel's mean device time a call and the wrapper's time
-a call by CUDA events over the same calls.
+Inputs are random, drawn from a seed (on the card, or with numpy for
+``morph_recon``). Each wrapper is called once to build and warm up, then
+``REPS`` times back to back timed by CUDA events, then ``REPS`` times under
+the profiler; the script prints the wrapper's time a call by CUDA events
+(without and with the profiler) and each kernel's mean device time a call,
+so the difference is what the host adds between calls.
 
     python3 tools/profile_kernels.py    # needs a CUDA card
 """
@@ -24,9 +28,12 @@ import sys
 
 import torch
 
-sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1] / "src"))
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT))
 
-from repro_torch.kernels import flash_attention, ssm_scan  # noqa: E402
+from chip_smoke import random_case  # noqa: E402
+from repro_torch.kernels import flash_attention, morph_recon, ssm_scan  # noqa: E402
 
 REPS = 20
 
@@ -35,6 +42,12 @@ def profile(name: str, fn) -> None:
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(REPS):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    print(f"{name}: {start.elapsed_time(end) / REPS:.4f} ms a call (CUDA events, profiler off)")
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         start.record()
         for _ in range(REPS):
@@ -78,6 +91,12 @@ def main() -> int:
     q, k, v = (normal(1, 4096, 32, 80).bfloat16() for _ in range(3))
     profile("attention (1, 4096, 32, 80) bf16 causal",
             lambda: flash_attention.flash_attention_cuda(q, k, v))
+    del q, k, v
+
+    mk, ms = random_case(4096, 4096, seed=8192)
+    for conn in (4, 8):
+        profile(f"morph_recon 4096x4096 random case, conn {conn}",
+                lambda: morph_recon.morph_reconstruct_cuda(mk, ms, conn))
     return 0
 
 
