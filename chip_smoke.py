@@ -40,7 +40,17 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
 12. the SA-serve study on Zamba2 2.7B at full width: 3 prompts of 4096
     tokens × 12 decoding settings × 3 thresholds, counting the kernels'
     launches (attention on the tensor-core kernel only);
-13. the same serve study code on card and CPU on the reduced Zamba2.
+13. the same serve study code on card and CPU on the reduced Zamba2;
+14. ``morph_recon`` launched from two threads on two streams at once
+    against its plain version, then the dataset study,
+    ``repro_torch.app.run_dataset_study``, over 4 tiles of 4096² (tile 0 is
+    phase 4's) with phase 4's MOAT runs and the default set, two thread
+    workers, counting kernel launches and host round trips and timing each
+    task;
+15. the adaptive study, ``repro_torch.app.run_adaptive_study`` (MOAT →
+    prune → VBD → refine, 3 rounds) on tile 0 over an ``obj:`` store,
+    resumed from its saved state with zero recompute; then the same
+    adaptive study code on card and CPU at 256², round records equal.
 
 Phase 7 also holds ``ssm_scan`` at Mamba2's real shape (layer 0 of the
 Zamba2 prefill: a per-head decay). The last three lines are the kernels
@@ -58,8 +68,11 @@ import itertools
 import json
 import math
 import pathlib
+import shutil
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 import numpy as np
@@ -73,6 +86,10 @@ SFU_OPS_PER_S = 132 * 16 * 1.98e9  # 16 MUFU ops a clock and SM (compute capabil
 SIZE = 4096
 SUB = 512  # the tile is an 8×8 mosaic of SUB² synthetic tiles
 MOAT_RUNS = 16  # the whole 15-parameter trajectory: 16 runs
+DATASET_TILES = 4  # phase 14; tile t's sub-tile seeds start at SEED_STEP * t
+SEED_STEP = (SIZE // SUB) ** 2  # 64: no sub-tile seed repeats across tiles
+ADAPTIVE_TILES = 1  # phase 15 at SIZE²: one tile (the label loops set its time)
+ADAPTIVE = dict(max_rounds=3, n_trajectories=2, n_base=4, seed=0)
 ARCH = "rwkv6_1p6b"
 PROMPTS, PROMPT_LEN, GEN_LEN = 3, 1024, 16
 ZAMBA, Z_PROMPT_LEN = "zamba2_2p7b", 4096
@@ -350,6 +367,281 @@ def card_vs_cpu(rcfg, sa_serve, init_params, prefill):
           + f"; accept rates differ in {differ} of {len(rsets)} sets")
 
 
+def two_streams(morph_recon, mk, ms, reps):
+    """Phase 14's concurrency check: ``reps`` calls of the cooperative
+    kernel one after another, then the same calls from two threads each on
+    its own stream at once (the dataset study's two workers may launch
+    together). Every result equals the plain version; no launch waits on
+    another's blocks (each thread is joined within a minute); the launch
+    count is exact and the rounds and tile visits, which the kernels add
+    on the card, hold every call's share."""
+    counts = (morph_recon.LAUNCHES, morph_recon.ROUNDS, morph_recon.TILE_VISITS,
+              morph_recon.HOST_ROUND_TRIPS)
+    th, tw = morph_recon.TILE
+    n_tiles = -(-mk.shape[0] // th) * -(-mk.shape[1] // tw)
+    want = morph_recon.morph_reconstruct_ref(mk, ms, conn=8)
+    torch.cuda.synchronize()
+    before = [c.value for c in counts]
+    t0 = time.perf_counter()
+    serial_out = [morph_recon.morph_reconstruct_cuda(mk, ms, conn=8) for _ in range(reps)]
+    torch.cuda.synchronize()
+    serial_s = time.perf_counter() - t0
+    serial = [c.value - b for c, b in zip(counts, before)]
+    check(all(torch.equal(g, want) for g in serial_out), "serial calls equal the plain version")
+    del serial_out
+    results = [[], []]
+
+    def worker(slot):
+        stream = torch.cuda.Stream()
+        with torch.cuda.stream(stream):
+            results[slot] = [morph_recon.morph_reconstruct_cuda(mk, ms, conn=8)
+                             for _ in range(reps // 2)]
+        stream.synchronize()
+
+    before = [c.value for c in counts]
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=worker, args=(i,), daemon=True) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    check(not any(t.is_alive() for t in threads), "both streams' launches returned within 60 s")
+    torch.cuda.synchronize()
+    both_s = time.perf_counter() - t0
+    both = [c.value - b for c, b in zip(counts, before)]
+    got = results[0] + results[1]
+    check(len(got) == reps and all(torch.equal(g, want) for g in got),
+          "every call from the two streams equals the plain version")
+    check(both[0] == serial[0] == reps, f"launches: two streams {both[0]}, serial {serial[0]}, "
+          f"calls {reps}")
+    check(both[3] == serial[3] == 0, "no host round trip")
+    for name, c in (("serial", serial), ("two streams", both)):
+        check(c[1] >= reps and c[2] >= reps * n_tiles,
+              f"{name}: rounds {c[1]} >= {reps} calls and tile visits {c[2]} >= "
+              f"{reps} x {n_tiles} tiles")
+    print(f"morph_recon, Seg2 input {tuple(mk.shape)} conn 8, {reps} calls: one after another "
+          f"{serial_s:.4f} s ({serial[0]} launches, {serial[1]} rounds, {serial[2]} tile visits); "
+          f"two threads on two streams {both_s:.4f} s ({both[0]} launches, {both[1]} rounds, "
+          f"{both[2]} tile visits); all equal to the plain version, no host round trip")
+
+
+def print_task_seconds(task_s, task_n):
+    print("per-task seconds (each timed between syncs; with two workers the intervals overlap):")
+    for name in task_s:
+        print(f"  {name}: {task_n[name]} tasks, {task_s[name]:.3f} s")
+
+
+def dataset_study(pipeline, tiles, sets, study_dice, counters, timers):
+    """Phase 14: ``run_dataset_study`` on the card with its defaults (hybrid,
+    two thread workers); returns the kernel's launches in it."""
+    task_s, task_n, task_lock, task_streams = timers
+    with task_lock:
+        task_s.clear()
+        task_n.clear()
+        task_streams.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.reset()
+    t0 = time.perf_counter()
+    ds = pipeline.run_dataset_study(tiles, sets, strategy="hybrid", n_workers=2)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, rounds, visits, trips = (c.value for c in counters)
+    n = len(tiles)
+    _, one, _ = pipeline._plan_image_study(
+        SIZE, SIZE, sets, strategy="hybrid", max_bucket_size=None, active_paths=None,
+        costs=None, n_workers=2, memory_budget_bytes=None)
+    print(f"wall {wall:.3f} s (run_dataset_study's own {ds['wall_seconds']:.3f} s); tiles {n}; "
+          f"runs {len(sets)}; backend {ds['backend']}; manager sessions {ds['manager_sessions']}")
+    print(f"tasks_total {ds['tasks_total']}; planned tasks_executed {ds['planned_tasks_executed']}; "
+          f"measured tasks_executed {ds['tasks_executed']}; single-tile plan {one.tasks_total} / "
+          f"{one.tasks_executed}")
+    print(f"cache hits {ds['cache_hits']}, misses {ds['cache_misses']}, spills {ds['cache_spills']}; "
+          f"reuse_factor {ds['reuse_factor']}")
+    print(f"throughput {ds['throughput']} tiles/s; parallel efficiency "
+          f"{ds['parallel_efficiency']}; retries {ds['retries']}; backups launched "
+          f"{ds['backups_launched']}; dispatch {ds['dispatch_counts']}")
+    print(f"morph_recon in the study: {launches} launches, {rounds} rounds, {visits} tile visits, "
+          f"{trips} host round trips in the wrapper")
+    print(f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    for i, row in enumerate(ds["dice"]):
+        print(f"dice tile {i}: " + " ".join(f"{d:.6f}" for d in row))
+    print_task_seconds(task_s, task_n)
+    print(f"CUDA streams the tasks ran on: {sorted(task_streams)} (0 is the legacy default "
+          "stream)")
+    check(ds["tasks_total"] == n * one.tasks_total,
+          f"tasks_total {ds['tasks_total']} == {n} x {one.tasks_total}")
+    check(ds["planned_tasks_executed"] == n * one.tasks_executed,
+          f"planned tasks_executed {ds['planned_tasks_executed']} == {n} x {one.tasks_executed}")
+    # the winning attempt of each bucket reports its executions and hits
+    check(ds["tasks_executed"] + ds["cache_hits"] == ds["planned_tasks_executed"],
+          f"executed {ds['tasks_executed']} + hits {ds['cache_hits']} == planned "
+          f"{ds['planned_tasks_executed']}")
+    check(ds["dice"][0][:len(study_dice)] == study_dice,
+          "tile 0's Dice list == phase 4's (same tile, same runs)")
+    check(all(row[-1] == 1.0 for row in ds["dice"]), "the default set's Dice is 1.0 on every tile")
+    check(all(0.0 <= d <= 1.0 for row in ds["dice"] for d in row), "dice in [0, 1]")
+    check(launches > 0 and trips == 0, f"morph_recon launched ({launches}) with no host round trip "
+          f"({trips})")
+    return launches
+
+
+def adaptive_study(pipeline, tiles, counters, timers):
+    """Phase 15 at SIZE²: ``run_adaptive_study`` over an ``obj:`` store,
+    then the study resumed from its saved state. Returns the kernel's
+    launches in the study."""
+    from repro_torch.core import dice
+    from repro_torch.engine import ClusterSpec, execute_study, plan_study
+    from repro_torch.study import StudyDriver, StudyState
+
+    task_s, task_n, task_lock, _ = timers
+    with task_lock:
+        task_s.clear()
+        task_n.clear()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_store_") as tmp:
+        store_dir = f"obj:{tmp}/store"
+        print(f"store {store_dir}: {shutil.disk_usage(tmp).free / 2**30:.1f} GiB free")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters:
+            c.reset()
+        t0 = time.perf_counter()
+        ad = pipeline.run_adaptive_study(tiles, store_dir=store_dir, **ADAPTIVE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, rounds, visits, trips = (c.value for c in counters)
+        state = ad["state"]
+        kinds = [r.kind for r in state.rounds]
+        print(f"wall {wall:.3f} s (run_adaptive_study's own {ad['wall_seconds']:.3f} s, after the "
+              f"reference runs); tiles {len(tiles)}; {ADAPTIVE}; rounds {kinds}")
+        for r in ad["rounds_detail"]:
+            print(f"  {r['kind']}: {json.dumps(r)}")
+        print(f"active {ad['active']}; best {ad['best']}")
+        print(f"tasks requested {ad['tasks_requested']}, executed {ad['tasks_executed']}; "
+              f"reuse_factor {ad['reuse_factor']}; cache hits {ad['cache_hits']}, misses "
+              f"{ad['cache_misses']}, spills {ad['cache_spills']}, rehydrations "
+              f"{ad['cache_rehydrations']}; store disk hits {ad['store_disk_hits']}; flushed "
+              f"{ad['cache_flushed']}")
+        print(f"morph_recon in the study: {launches} launches, {rounds} rounds, {visits} tile "
+              f"visits, {trips} host round trips in the wrapper")
+        print(f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        print_task_seconds(task_s, task_n)
+        check(kinds[:2] == ["moat", "vbd"], f"rounds start MOAT, VBD: {kinds}")
+        check(ad["tasks_executed"] > 0 and launches > 0 and trips == 0,
+              f"morph_recon launched ({launches}) with no host round trip ({trips})")
+
+        # resume: the saved state and a fresh driver over the same store
+        ckpt = f"{tmp}/state.json"
+        t0 = time.perf_counter()
+        state.save(ckpt)
+        save_s = time.perf_counter() - t0
+        used = sum(f.stat().st_size for f in pathlib.Path(tmp).rglob("*") if f.is_file())
+        t0 = time.perf_counter()
+        st2 = StudyState.load(ckpt)
+        check(st2.store.disk_dir == store_dir, f"the resumed store is {store_dir}")
+        raws = [{"raw": torch.from_numpy(t).cuda()} for t in tiles]
+        refs = [torch.from_numpy(m).cuda() for m in ad["reference_masks"]]
+
+        def objective(leaf, i):
+            return 1.0 - float(dice(leaf["mask"], refs[i]))
+
+        wf = pipeline.build_workflow(SIZE, SIZE)
+        drv = StudyDriver(wf, pipeline.TABLE1_SPACE, raws, objective=objective, state=st2,
+                          cluster=ClusterSpec(n_workers=1),
+                          input_keys=[f"tile{i}" for i in range(len(tiles))])
+        before_tasks = sum(task_n.values())
+        for c in counters:
+            c.reset()
+        try:
+            rec1 = st2.rounds[0]
+            y, stats = drv.evaluate(rec1.param_sets)
+            check(stats["n_new"] == 0 and stats["tasks_executed"] == 0 and y == rec1.outputs,
+                  f"round 1's runs recalled: {stats}")
+            uniq = list(dict.fromkeys(rec1.param_sets))
+            plan = plan_study(wf, uniq, policy="hybrid", active_paths=4)
+            st2.epoch += 1
+            stream = execute_study(plan, raws, cache=st2.cache, manager=drv._ensure_manager(),
+                                   input_keys=drv.input_keys, key_prefix=f"r{st2.epoch}:")
+            ys = {ps: sum(objective(stream.outputs[i][rid], i) for i in range(len(tiles)))
+                  / len(tiles) for rid, ps in enumerate(uniq)}
+            torch.cuda.synchronize()
+        finally:
+            drv.close()
+        resume_s = time.perf_counter() - t0
+        ran = sum(task_n.values()) - before_tasks
+        masks = [stream.outputs[i][rid]["mask"] for i in range(len(tiles)) for rid in range(len(uniq))]
+        print(f"saved in {save_s:.3f} s ({used / 2**30:.3f} GiB in the store directory); resumed "
+              f"and round 1's {len(uniq)} runs replayed through the engine in {resume_s:.3f} s: "
+              f"tasks executed {stream.tasks_executed}, task calls {ran}, cache hits "
+              f"{stream.cache_hits}, rehydrations {st2.cache.rehydrations}, store disk hits "
+              f"{st2.store.disk_hits}, cache spills {st2.cache.spills}, store writes that found "
+              f"the entry there (dedup_writes) {st2.store.dedup_writes}, morph_recon launches "
+              f"{counters[0].value}")
+        store_path("a leaf's state", stream.outputs[0][0], st2.store.objstore)
+        store_path("normalize's output", pipeline._t_normalize(raws[0]), st2.store.objstore)
+        check(stream.tasks_executed == 0 and ran == 0 and counters[0].value == 0,
+              "zero recompute on resume")
+        check(st2.cache.rehydrations > 0, "the replay rehydrated from the store")
+        check(all(m.is_cuda and m.dtype == torch.bool for m in masks),
+              "rehydrated masks are bool tensors on the card")
+        check(all(ys[ps] == st2.evaluated[ps] for ps in uniq),
+              "objectives of the rehydrated masks == the recorded ones")
+    return launches
+
+
+def store_path(what, value, objstore):
+    """Where a spill's and a rehydration's time goes: one task state on the
+    card through the steps of the object tier, each timed on its own."""
+    from repro_torch.runtime import storage
+
+    steps = {}
+
+    def step(name, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        steps[name] = time.perf_counter() - t
+        return out
+
+    payload = step("serialise (to the host, npz)", lambda: storage._serialise(value))
+    blob = step("footer (sha256)", lambda: storage._pack_entry(payload))
+    step("put_if_absent, new key (tmp file, fsync, link)",
+         lambda: objstore.put_if_absent("timing/entry", blob))
+    step("put_if_absent, key present (tmp file, fsync, EEXIST)",
+         lambda: objstore.put_if_absent("timing/entry", blob))
+    data = step("get", lambda: objstore.get("timing/entry"))
+    body = step("footer check (sha256)", lambda: storage._footer_ok(data))
+    step("deserialise (npz, to the card)", lambda: storage._deserialise(body))
+    objstore.delete("timing/entry")
+    print(f"{what} ({len(blob) / 2**20:.1f} MiB entry) through the object tier: "
+          + "; ".join(f"{k} {v:.4f} s" for k, v in steps.items()))
+
+
+def adaptive_card_vs_cpu(pipeline):
+    """Phase 15 at 256²: the same adaptive study on the card and on the
+    CPU, round records and outputs equal."""
+    small = pipeline.synthetic_tile(256, 256, seed=0)
+    t0 = time.perf_counter()
+    card = pipeline.run_adaptive_study([small], **ADAPTIVE)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = pipeline.run_adaptive_study([small], device="cpu", **ADAPTIVE)
+    cpu_s = time.perf_counter() - t0
+    check(card["rounds_detail"] == cpu["rounds_detail"], "round records equal")
+    for a, b in zip(card["state"].rounds, cpu["state"].rounds):
+        check(a.param_sets == b.param_sets and a.outputs == b.outputs,
+              f"{a.kind} round: param sets and objectives equal")
+    for key in ("active", "frozen", "best", "tasks_requested", "tasks_executed", "reuse_factor"):
+        check(card[key] == cpu[key], f"{key}: card {card[key]} == cpu {cpu[key]}")
+    check(all(np.array_equal(a, b) for a, b in zip(card["reference_masks"], cpu["reference_masks"])),
+          "reference masks equal")
+    print(f"rounds {[r['kind'] for r in card['rounds_detail']]}; tasks {card['tasks_requested']} / "
+          f"{card['tasks_executed']}; round records, param sets, objectives, survivors "
+          f"{card['active']} and best equal; card {card_s:.3f} s, CPU {cpu_s:.3f} s")
+
+
 def phase(name: str) -> None:
     print(f"\n== {name}", flush=True)
 
@@ -405,13 +697,15 @@ def recon_inputs(pipeline, tile: np.ndarray) -> dict:
     return {"seg2": (seg2_marker, gray), "fill-holes": (border, inv)}
 
 
-def mosaic_tile(pipeline) -> np.ndarray:
-    """SIZE² tile as a mosaic of SUB² synthetic tiles with seeds 0, 1, ...
-    in row-major order (one SIZE² synthetic tile costs about an hour of
-    host time; the generator's cost grows with the square of the area)."""
+def mosaic_tile(pipeline, first_seed: int = 0) -> np.ndarray:
+    """SIZE² tile as a mosaic of SUB² synthetic tiles with seeds first_seed,
+    first_seed + 1, ... in row-major order (one SIZE² synthetic tile costs
+    about an hour of host time; the generator's cost grows with the square
+    of the area)."""
     n = SIZE // SUB
     with concurrent.futures.ThreadPoolExecutor(max_workers=8) as pool:
-        subs = list(pool.map(lambda s: pipeline.synthetic_tile(SUB, SUB, seed=s), range(n * n)))
+        subs = list(pool.map(lambda s: pipeline.synthetic_tile(SUB, SUB, seed=s),
+                             range(first_seed, first_seed + n * n)))
     rows = [np.concatenate(subs[r * n : (r + 1) * n], axis=1) for r in range(n)]
     return np.concatenate(rows, axis=0)
 
@@ -533,16 +827,20 @@ def main() -> int:
     print(f"runs: {len(sets)} of {len(sets)} (MOAT trajectory, seed 0)")
     task_s = collections.Counter()
     task_n = collections.Counter()
+    task_lock = threading.Lock()  # phase 14 runs tasks on two worker threads
+    task_streams = set()  # the CUDA streams the tasks ran on (phase 14 prints them)
 
     def timed(name, fn):
         @functools.wraps(fn)
-        def run(state, **kw):
+        def run(state, *args, **kw):
             torch.cuda.synchronize()
             t = time.perf_counter()
-            out = fn(state, **kw)
+            out = fn(state, *args, **kw)
             torch.cuda.synchronize()
-            task_s[name] += time.perf_counter() - t
-            task_n[name] += 1
+            with task_lock:
+                task_s[name] += time.perf_counter() - t
+                task_n[name] += 1
+                task_streams.add(torch.cuda.current_stream().cuda_stream)
             return out
         return run
 
@@ -577,7 +875,7 @@ def main() -> int:
     ref = pipeline.run_study(tile, [pipeline.TABLE1_SPACE.default()])
     check(ref["dice"] == [1.0], f"default-parameter dice {ref['dice']} == [1.0]")
     print("default-parameter study: dice [1.0]")
-    del tile
+    study_dice = out["dice"]  # phase 14 holds tile 0 of the dataset study to these
     torch.cuda.empty_cache()
 
     # -- 5. card vs CPU --------------------------------------------------
@@ -870,6 +1168,32 @@ def main() -> int:
     phase("13 card vs CPU, reduced Zamba2")
     card_vs_cpu(configs.reduced_config(zcfg), sa_serve, init_params, prefill)
 
+    # -- 14. the dataset study ------------------------------------------------
+    phase(f"14 dataset study: run_dataset_study over {DATASET_TILES} tiles of {SIZE}x{SIZE}")
+    recon_launches = {"run_study": study_launches}
+    two_streams(morph_recon, *recon_inputs(pipeline, tile)["seg2"], reps=8)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tiles = [tile] + [mosaic_tile(pipeline, SEED_STEP * t) for t in range(1, DATASET_TILES)]
+    dsets = list(sets) + [pipeline.TABLE1_SPACE.default()]
+    print(f"tiles: {len(tiles)} mosaics, tile t's sub-tile seeds from {SEED_STEP}·t (tile 0 is "
+          f"phase 4's), {time.perf_counter() - t0:.1f} s host; runs: phase 4's {len(sets)} and "
+          f"the default set")
+    recon_launches["run_dataset_study"] = dataset_study(
+        pipeline, tiles, dsets, study_dice, counters, (task_s, task_n, task_lock, task_streams))
+    torch.cuda.empty_cache()
+
+    # -- 15. the adaptive study ----------------------------------------------
+    phase(f"15 adaptive study: run_adaptive_study over {ADAPTIVE_TILES} tile of {SIZE}x{SIZE}, "
+          f"an obj: store, and its resume")
+    print(f"cut: {ADAPTIVE_TILES} of the {DATASET_TILES} tiles (the label loops set the time)")
+    recon_launches["run_adaptive_study"] = adaptive_study(
+        pipeline, tiles[:ADAPTIVE_TILES], counters, (task_s, task_n, task_lock, task_streams))
+    del tiles, tile
+    torch.cuda.empty_cache()
+    phase("15 card vs CPU at 256x256: the same adaptive study")
+    adaptive_card_vs_cpu(pipeline)
+
     # -- results -----------------------------------------------------------
     ms_k, ms_p, bound = timing[(f"seg2 {SIZE}x{SIZE}", int(default["RC"]))][:3]
     print(json.dumps({"kernels": [{
@@ -877,7 +1201,8 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/morph_recon.cu",
         "replaces": "src/repro/kernels/morph_recon.py:52",
-        "launches": study_launches,
+        "launches": sum(recon_launches.values()),
+        "launches_by_path": recon_launches,
         "max_abs_err": max_err,
         "ms": ms_k,
         "plain_ms": ms_p,

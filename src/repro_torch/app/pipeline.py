@@ -20,7 +20,7 @@ combined with one computes in float32.
 from __future__ import annotations
 
 import time
-from typing import Any, Dict, Mapping, Optional, Sequence, Union
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -30,7 +30,13 @@ from repro_torch.core import ParamSpace, StageSpec, TaskSpec, Workflow, dice
 from repro_torch.core.metrics import reuse_factor
 from repro_torch.core.params import ParamSet
 from repro_torch.device import resolve_device
-from repro_torch.engine import ClusterSpec, MemoryBudget, execute_plan, plan_study
+from repro_torch.engine import (
+    ClusterSpec,
+    MemoryBudget,
+    execute_plan,
+    execute_study,
+    plan_study,
+)
 
 __all__ = [
     "TABLE1_SPACE",
@@ -38,6 +44,8 @@ __all__ = [
     "build_segmentation_stage",
     "build_workflow",
     "run_study",
+    "run_dataset_study",
+    "run_adaptive_study",
     "resolve_device",
     "state_from_numpy",
     "state_to_numpy",
@@ -208,8 +216,94 @@ def state_to_numpy(state: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
 
 
 # --------------------------------------------------------------------------
-# SA study entry point: a thin caller of the StudyPlanner engine.
+# SA study drivers: thin callers of the StudyPlanner engine.
 # --------------------------------------------------------------------------
+
+
+def _backend_for(backend: Any) -> Any:
+    """Resolve the app-level ``backend`` spec: ``None``, ``"thread"`` or a
+    constructed WorkerBackend pass through to the Manager. The process and
+    socket backends, which rebuild the study in worker processes, are not
+    ported yet, and their specs raise."""
+    if isinstance(backend, str) and backend.startswith(("process", "socket")):
+        raise NotImplementedError(
+            f"backend {backend!r}: the process and socket worker backends are not "
+            "ported yet; they come with slice 3, the multi-process and multi-host "
+            "runtime"
+        )
+    return backend
+
+
+def _round_detail(r: Any) -> Dict[str, Any]:
+    """One round's reporting dict: an entry of the adaptive study's
+    ``rounds_detail``."""
+    return {
+        "kind": r.kind,
+        "n_proposed": r.n_proposed,
+        "n_new": r.n_new,
+        "planned_tasks": r.planned_tasks,
+        "planned_known": r.planned_known,
+        "tasks_executed": r.tasks_executed,
+        "cache_hits": r.cache_hits,
+        "analysis": r.analysis,
+        "decision": r.decision,
+    }
+
+
+def _plan_image_study(
+    h: int,
+    w: int,
+    param_sets: Sequence[ParamSet],
+    *,
+    strategy: str,
+    max_bucket_size: Optional[int],
+    active_paths: Optional[int],
+    costs: Optional[Dict[str, float]],
+    n_workers: int,
+    memory_budget_bytes: Optional[int],
+):
+    """Shared planning preamble of the single-tile and dataset drivers:
+    build the workflow for the tile shape and plan the study (with the
+    headline ``active_paths=4`` default when there is no budget to solve
+    against). Returns ``(workflow, plan, cluster)``."""
+    wf = build_workflow(h, w, costs)
+    memory = MemoryBudget(bytes=memory_budget_bytes)
+    cluster = ClusterSpec(n_workers=n_workers)
+    if active_paths is None and memory_budget_bytes is None:
+        active_paths = 4  # headline depth-first width when nothing to solve
+    plan = plan_study(
+        wf,
+        list(param_sets),
+        memory=memory,
+        cluster=cluster,
+        policy=strategy,
+        max_bucket_size=max_bucket_size,
+        active_paths=active_paths,
+    )
+    return wf, plan, cluster
+
+
+def _tile_inputs(
+    images: Sequence[np.ndarray], dev: torch.device, caller: str
+) -> Tuple[int, int, List[Dict[str, torch.Tensor]]]:
+    """Check that the tiles share one shape and move each to ``dev``, once:
+    ``(h, w, [{"raw": tensor}, ...])``."""
+    if not images:
+        raise ValueError(f"{caller} needs at least one tile")
+    h, w = images[0].shape[:2]
+    if any(im.shape[:2] != (h, w) for im in images):
+        raise ValueError("all tiles must share one (h, w) shape")
+    return h, w, [{"raw": torch.from_numpy(np.asarray(im)).to(dev)} for im in images]
+
+
+def _reference_masks(
+    wf: Workflow, ref_params: ParamSet, raws: Sequence[Any], cluster: ClusterSpec
+) -> List[torch.Tensor]:
+    """The default-parameter segmentation of every tile, left on the tiles'
+    device."""
+    ref_plan = plan_study(wf, [ref_params], policy="rmsr", active_paths=1)
+    ref_stream = execute_study(ref_plan, raws, cluster=cluster)
+    return [ref_stream.outputs[i][0]["mask"] for i in range(len(raws))]
 
 
 def run_study(
@@ -234,13 +328,15 @@ def run_study(
     merging (default rtma→8; rmsr merges maximally, the paper's headline
     configuration). ``n_workers`` dispatches buckets demand-driven through
     the Manager. ``backend`` is the session's WorkerBackend: ``None`` or
-    ``"thread"`` for in-process Worker threads, or a constructed backend.
+    ``"thread"`` for in-process Worker threads, or a constructed backend
+    (:func:`_backend_for`).
 
     ``device`` is where the tile goes, once, and where every task state
     lives: ``None`` means ``cuda:0`` and raises without CUDA
     (:func:`resolve_device`).
 
-    ``tasks_executed`` is the MEASURED count (cache hits subtracted), while
+    ``tasks_executed`` is the MEASURED count (cache hits subtracted) —
+    the same semantics as ``run_dataset_study`` — while
     ``planned_tasks_executed`` / ``reuse_fraction`` report the plan's
     merge-level accounting (the paper's analytic counts).
     """
@@ -249,20 +345,14 @@ def run_study(
     ref_params = reference_params or TABLE1_SPACE.default()
 
     t0 = time.perf_counter()
-    wf = build_workflow(h, w, costs)
-    if active_paths is None and memory_budget_bytes is None:
-        active_paths = 4  # headline depth-first width when nothing to solve
-    plan = plan_study(
-        wf,
-        list(param_sets),
-        memory=MemoryBudget(bytes=memory_budget_bytes),
-        cluster=ClusterSpec(n_workers=n_workers),
-        policy=strategy,
-        max_bucket_size=max_bucket_size,
-        active_paths=active_paths,
+    wf, plan, _cluster = _plan_image_study(
+        h, w, param_sets,
+        strategy=strategy, max_bucket_size=max_bucket_size,
+        active_paths=active_paths, costs=costs, n_workers=n_workers,
+        memory_budget_bytes=memory_budget_bytes,
     )
     raw = {"raw": torch.from_numpy(np.asarray(image)).to(dev)}
-    result = execute_plan(plan, raw, backend=backend, hierarchy=hierarchy)
+    result = execute_plan(plan, raw, backend=_backend_for(backend), hierarchy=hierarchy)
 
     ref_plan = plan_study(wf, [ref_params], policy="rmsr", active_paths=1)
     ref_mask = execute_plan(ref_plan, raw).outputs[0]["mask"]
@@ -289,4 +379,166 @@ def run_study(
         "dispatch_counts": dict(result.dispatch_counts),
         "cache_flushed": 0,  # no persistent spill store in one-shot mode
         "plan": plan,
+    }
+
+
+def run_dataset_study(
+    images: Sequence[np.ndarray],
+    param_sets: Sequence[ParamSet],
+    *,
+    strategy: str = "hybrid",
+    max_bucket_size: Optional[int] = None,
+    active_paths: Optional[int] = None,
+    reference_params: Optional[ParamSet] = None,
+    costs: Optional[Dict[str, float]] = None,
+    n_workers: int = 2,
+    memory_budget_bytes: Optional[int] = None,
+    backend: Any = None,
+    hierarchy: Any = None,
+    device: Union[None, str, torch.device] = None,
+) -> Dict[str, Any]:
+    """Dataset-level SA study: many tiles streamed through ONE plan and one
+    persistent Manager session (DESIGN.md §10).
+
+    Plans once, then pipelines every tile concurrently through all stages —
+    tile A can be in segmentation while tile B normalizes. Returns per-tile
+    Dice lists plus the streaming throughput/parallel-efficiency metrics.
+    All tiles must share one shape (the plan's byte model is shape-exact).
+    ``backend`` is the session's WorkerBackend, as for :func:`run_study`;
+    the single-run reference segmentation always executes in-process.
+    ``device`` is where the tiles go, once each, and where the task states
+    and the reference masks stay: ``None`` means ``cuda:0`` and raises
+    without CUDA.
+    """
+    dev = resolve_device(device)
+    backend = _backend_for(backend)
+    ref_params = reference_params or TABLE1_SPACE.default()
+
+    t0 = time.perf_counter()
+    h, w, raws = _tile_inputs(list(images), dev, "run_dataset_study")
+    wf, plan, cluster = _plan_image_study(
+        h, w, param_sets,
+        strategy=strategy, max_bucket_size=max_bucket_size,
+        active_paths=active_paths, costs=costs, n_workers=n_workers,
+        memory_budget_bytes=memory_budget_bytes,
+    )
+    stream = execute_study(plan, raws, cluster=cluster, backend=backend, hierarchy=hierarchy)
+    ref_masks = _reference_masks(wf, ref_params, raws, cluster)
+
+    n = len(raws)
+    dices = [
+        [
+            float(dice(stream.outputs[i][rid]["mask"], ref_masks[i]))
+            for rid in range(len(param_sets))
+        ]
+        for i in range(n)
+    ]
+    return {
+        "dice": dices,  # [tile][run]
+        "tasks_total": plan.tasks_total * n,
+        "tasks_executed": stream.tasks_executed,
+        "planned_tasks_executed": plan.tasks_executed * n,
+        "cache_hits": stream.cache_hits,
+        "cache_misses": stream.cache_misses,
+        "cache_spills": stream.cache_spills,
+        "reuse_factor": reuse_factor(stream.tasks_executed, plan.tasks_total * n),
+        "throughput": stream.throughput,
+        "parallel_efficiency": stream.parallel_efficiency,
+        "manager_sessions": stream.manager_sessions,
+        "backend": stream.backend,
+        "dispatch_counts": dict(stream.dispatch_counts),
+        "retries": stream.retries,
+        "backups_launched": stream.backups_launched,
+        "wall_seconds": time.perf_counter() - t0,
+        "reference_masks": [m.cpu().numpy() for m in ref_masks],
+        "plan": plan,
+        "stream": stream,
+    }
+
+
+def run_adaptive_study(
+    images: Sequence[np.ndarray],
+    *,
+    space: ParamSpace = TABLE1_SPACE,
+    max_rounds: int = 4,
+    strategy: str = "hybrid",
+    n_workers: int = 1,
+    seed: int = 0,
+    reference_params: Optional[ParamSet] = None,
+    n_trajectories: int = 2,
+    n_base: int = 4,
+    n_boot: int = 16,
+    costs: Optional[Dict[str, float]] = None,
+    store_dir: Optional[str] = None,
+    sa_policy: Optional[Any] = None,
+    backend: Any = None,
+    hierarchy: Any = None,
+    device: Union[None, str, torch.device] = None,
+) -> Dict[str, Any]:
+    """Adaptive MOAT → prune → VBD → refine study over tiles (DESIGN.md §11).
+
+    A thin caller of :class:`repro_torch.study.StudyDriver`: the objective
+    is the Dice *difference* (1 − Dice) of each run's segmentation vs the
+    default-parameter reference, averaged over tiles; rounds share one
+    Manager session, one result cache backed by the persistent store
+    (``store_dir``: a directory, ``"obj:<root>"`` for the object-store
+    tier, or ``None`` for a throwaway one), and plan only each round's
+    delta against the cached trie. The summary reports the study-wide reuse
+    accounting (``reuse_factor``, cache hit/miss/spill counters) alongside
+    the per-round records. ``device`` is as for :func:`run_dataset_study`.
+    """
+    from repro_torch.study import (
+        MoatSampler,
+        RefinementSampler,
+        SaltelliSampler,
+        StudyDriver,
+    )
+
+    dev = resolve_device(device)
+    backend = _backend_for(backend)
+    h, w, raws = _tile_inputs(list(images), dev, "run_adaptive_study")
+    wf = build_workflow(h, w, costs)
+    cluster = ClusterSpec(n_workers=n_workers)
+    ref_masks = _reference_masks(wf, reference_params or space.default(), raws, cluster)
+
+    def objective(leaf_state: Any, input_index: int) -> float:
+        return 1.0 - float(dice(leaf_state["mask"], ref_masks[input_index]))
+
+    t0 = time.perf_counter()
+    driver = StudyDriver(
+        wf,
+        space,
+        raws,
+        objective=objective,
+        maximize=False,
+        seed=seed,
+        engine_policy=strategy,
+        cluster=cluster,
+        sa_policy=sa_policy,
+        samplers={
+            "moat": MoatSampler(n_trajectories),
+            "vbd": SaltelliSampler(n_base),
+            "refine": RefinementSampler(),
+        },
+        n_boot=n_boot,
+        input_keys=[f"tile{i}" for i in range(len(raws))],
+        store_dir=store_dir,
+        backend=backend,
+        hierarchy=hierarchy,
+    )
+    try:
+        state = driver.run(max_rounds=max_rounds)
+        # publish barrier: push the round-persistent cache through to the
+        # store's disk tier and report how many entries that persisted
+        cache_flushed = state.cache.flush()
+        summary = driver.summary()
+    finally:
+        driver.close()
+    return {
+        **summary,
+        "cache_flushed": cache_flushed,
+        "wall_seconds": time.perf_counter() - t0,
+        "rounds_detail": [_round_detail(r) for r in state.rounds],
+        "reference_masks": [m.cpu().numpy() for m in ref_masks],
+        "state": state,
     }

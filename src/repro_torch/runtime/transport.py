@@ -245,16 +245,16 @@ def make_backend(spec: Any) -> "WorkerBackend":
     (with or without a ``[...]`` flag suffix — see
     :func:`process_flag_kwargs`) cannot be built here — a
     :class:`ProcessRpcBackend` needs a ``build`` for its workers, so the
-    caller must construct it."""
+    caller must construct it. ``"socket"`` raises ``NotImplementedError``
+    until the socket backend is ported (slice 3)."""
     if spec is None or spec == "thread":
         return ThreadBackend()
     if isinstance(spec, str) and spec.startswith("socket"):
-        # unlike "process", a socket backend IS constructible by name: the
-        # leader only listens — workers bring their own build context when
-        # they dial in (or the spec's spawn mode launches loopback workers)
-        from repro_torch.runtime.net import SocketBackend, socket_flag_kwargs
-
-        return SocketBackend(**socket_flag_kwargs(spec))
+        raise NotImplementedError(
+            f"backend spec {spec!r}: the socket backend (runtime/net.py) is not "
+            "ported yet; it comes with slice 3, the multi-process and multi-host "
+            "runtime"
+        )
     if isinstance(spec, str):
         raise ValueError(
             f"backend spec {spec!r} is not constructible from a name alone; "
