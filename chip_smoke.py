@@ -43,17 +43,29 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
 13. the same serve study code on card and CPU on the reduced Zamba2;
 14. ``morph_recon`` launched from two threads on two streams at once
     against its plain version, then the dataset study,
-    ``repro_torch.app.run_dataset_study``, over 4 tiles of 4096² (tile 0 is
+    ``repro_torch.app.run_dataset_study``, over 2 tiles of 4096² (tile 0 is
     phase 4's) with phase 4's MOAT runs and the default set, two thread
     workers, counting kernel launches and host round trips and timing each
     task;
 15. the adaptive study, ``repro_torch.app.run_adaptive_study`` (MOAT →
     prune → VBD → refine, 3 rounds) on tile 0 over an ``obj:`` store,
     resumed from its saved state with zero recompute; then the same
-    adaptive study code on card and CPU at 256², round records equal.
+    adaptive study code on card and CPU at 256², round records equal;
+16. phase 14's dataset study through ``backend="process"``: two spawn
+    workers, each with its own CUDA context, Dice equal to phase 14's, the
+    workers' own report of their device and ``morph_recon`` launches, and
+    what ``nvidia-smi`` shows on the card meanwhile;
+17. phase 4's study through ``backend="socket"`` (two workers over
+    loopback TCP), Dice equal to phase 4's, then again with one worker
+    SIGKILLed while it holds a lease;
+18. ``run_fleet_study`` (two spawned StudyDriver processes over one store
+    directory, 2 rounds on one SIZE² tile) against one in-process
+    StudyDriver over the same build: round records and best equal, no
+    corrupt read.
 
 Phase 7 also holds ``ssm_scan`` at Mamba2's real shape (layer 0 of the
-Zamba2 prefill: a per-head decay). The last three lines are the kernels
+Zamba2 prefill: a per-head decay); phase 11 the CUDA-core attention kernel
+at gemma3_1b's head dim 256, causal and with its 512-key window. The last three lines are the kernels
 JSON, the ``nvidia-smi`` name and power limit, and
 ``{"ok": true, "device": {...}}``.
 """
@@ -67,8 +79,10 @@ import functools
 import itertools
 import json
 import math
+import os
 import pathlib
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -86,7 +100,9 @@ SFU_OPS_PER_S = 132 * 16 * 1.98e9  # 16 MUFU ops a clock and SM (compute capabil
 SIZE = 4096
 SUB = 512  # the tile is an 8×8 mosaic of SUB² synthetic tiles
 MOAT_RUNS = 16  # the whole 15-parameter trajectory: 16 runs
-DATASET_TILES = 4  # phase 14; tile t's sub-tile seeds start at SEED_STEP * t
+# phases 14 and 16; tile t's sub-tile seeds start at SEED_STEP * t. Cut from 4:
+# on process workers each 4096² tile costs about two minutes of store spills
+DATASET_TILES = 2
 SEED_STEP = (SIZE // SUB) ** 2  # 64: no sub-tile seed repeats across tiles
 ADAPTIVE_TILES = 1  # phase 15 at SIZE²: one tile (the label loops set its time)
 ADAPTIVE = dict(max_rounds=3, n_trajectories=2, n_base=4, seed=0)
@@ -207,6 +223,79 @@ def attn_bound(q, k, v, out):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 4 * h * d * pairs / BF16_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations",
             nbytes, 4 * h * d * pairs, h * pairs)
+
+
+def attn_pairs(sq: int, window=None) -> int:
+    """(query, key) pairs a causal mask keeps over Sq == Sk, within
+    ``window`` keys of the query when one is given."""
+    if window is None or window >= sq:
+        return sq * (sq + 1) // 2
+    return window * (window + 1) // 2 + (sq - window) * window
+
+
+def gemma3_attention(flash_attention, kref):
+    """Phase 11 at head dim 256: gemma3_1b's attention shape, (1, 4096, 4,
+    256) with one kv head, causal and with its local window 512, on the
+    CUDA-core kernel (the tensor-core one stops at 128). fp32 against the
+    oracle at 2e-5; bf16 within one bf16 rounding of the plain version's
+    fp32 arithmetic. Times, bounds (fp32: the fp32 rate; bf16: the bf16
+    tensor rate, against the bytes) and SDPA's time on the same tensors.
+    Returns {case: numbers}."""
+    from repro_torch import configs
+
+    g = configs.get_config("gemma3_1b")
+    shape = (1, Z_PROMPT_LEN, g.num_heads, g.num_kv_heads, g.head_dim)
+    q, k, v = qkv_case(1, shape[1], shape[1], *shape[2:], seed=256)
+    out = {}
+    for window in (None, g.local_window):
+        before, wgmma = flash_attention.LAUNCHES.value, flash_attention.WGMMA_LAUNCHES.value
+        got = flash_attention.flash_attention_cuda(q, k, v, window=window)
+        torch.cuda.synchronize()
+        check(flash_attention.LAUNCHES.value == before + 1
+              and flash_attention.WGMMA_LAUNCHES.value == wgmma,
+              f"D = 256 window {window}: one CUDA-core launch")
+        want = kref.attention_ref(q, k, v, window=window)
+        check(torch.allclose(got, want, rtol=2e-5, atol=2e-5),
+              f"D = 256 fp32 window {window} within 2e-5 of attention_ref")
+        err = float((got - want).abs().max())
+        qb, kb, vb = (t.bfloat16() for t in (q, k, v))
+        got_b = flash_attention.flash_attention_cuda(qb, kb, vb, window=window)
+        torch.cuda.synchronize()
+        check(flash_attention.WGMMA_LAUNCHES.value == wgmma, "D = 256 bf16 stays off the tensor cores")
+        want_b = kref.flash_attention_blocked(qb, kb, vb, window=window)  # fp32 arithmetic here
+        check(torch.allclose(got_b.float(), want_b.float(), rtol=2 ** -7, atol=2 ** -9),
+              f"D = 256 bf16 window {window} within one bf16 rounding of flash_attention_blocked")
+        err_b = float((got_b.float() - want_b.float()).abs().max())
+        del want, want_b
+        ms = cuda_ms(lambda: flash_attention.flash_attention_cuda(q, k, v, window=window), 5)
+        ms_b = cuda_ms(lambda: flash_attention.flash_attention_cuda(qb, kb, vb, window=window), 5)
+        pairs = attn_pairs(shape[1], window) * shape[2]  # a kept pair and query head
+        flops = 4 * g.head_dim * pairs
+        nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, got))
+        bound = max(nbytes / HBM_BYTES_PER_S, flops / FP32_OPS_PER_S) * 1e3
+        bound_b = max(nbytes / 2 / HBM_BYTES_PER_S, flops / BF16_OPS_PER_S) * 1e3
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        if window is None:
+            sdpa = functools.partial(torch.nn.functional.scaled_dot_product_attention, qt, kt, vt,
+                                     is_causal=True, enable_gqa=True)
+        else:
+            i = torch.arange(shape[1], device=q.device)
+            keep = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+            sdpa = functools.partial(torch.nn.functional.scaled_dot_product_attention, qt, kt, vt,
+                                     attn_mask=keep, enable_gqa=True)
+        sdpa_err = float((sdpa().transpose(1, 2) - got).abs().max())
+        lib_ms = cuda_ms(sdpa, 5)
+        name = "causal" if window is None else f"window {window}"
+        print(f"gemma3_1b attention {shape[:3] + shape[4:]} kv {shape[3]} {name}: fp32 max abs err "
+              f"{err:.3g} vs attention_ref, bf16 {err_b:.3g} vs blocked; kernel fp32 {ms:.4f} ms, "
+              f"bf16 {ms_b:.4f} ms; bound fp32 {bound:.4f} ms, bf16 {bound_b:.4f} ms (operations: "
+              f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB in fp32); library call "
+              f"(scaled_dot_product_attention, fp32) {lib_ms:.4f} ms (max abs diff {sdpa_err:.3g}); "
+              f"fp32 {ms / bound:.1f}x bound")
+        out[name] = dict(ms=ms, bf16_ms=ms_b, bound_ms=bound, bf16_bound_ms=bound_b,
+                         library_ms=lib_ms, max_abs_err=err, max_abs_err_bf16=err_b)
+        del got, got_b, qb, kb, vb, qt, kt, vt, sdpa
+    return out
 
 
 def qkv_case(b, sq, sk, h, kv, d, seed):
@@ -484,7 +573,150 @@ def dataset_study(pipeline, tiles, sets, study_dice, counters, timers):
     check(all(0.0 <= d <= 1.0 for row in ds["dice"] for d in row), "dice in [0, 1]")
     check(launches > 0 and trips == 0, f"morph_recon launched ({launches}) with no host round trip "
           f"({trips})")
-    return launches
+    return launches, ds
+
+
+def process_dataset_study(pipeline, tiles, sets, ds14, counters):
+    """Phase 16: phase 14's study through ``backend="process"``: two spawn
+    workers, each rebuilding the study on its own card context. Per-tile
+    Dice == phase 14's, planned counts equal, the workers on the card and
+    launching ``morph_recon``. Returns {path: launches}: the workers' (from
+    their reports) and the leader's (its in-process reference runs)."""
+    for c in counters:
+        c.reset()
+    with WorkerWatch(pipeline) as watch:
+        t0 = time.perf_counter()
+        ds = pipeline.run_dataset_study(tiles, sets, strategy="hybrid", n_workers=2,
+                                        backend="process")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    leader = counters[0].value
+    print(f"wall {wall:.3f} s (phase 14, thread workers: {ds14['wall_seconds']:.3f} s); backend "
+          f"{ds['backend']}; manager sessions {ds['manager_sessions']}")
+    print(f"tasks_total {ds['tasks_total']}; planned tasks_executed {ds['planned_tasks_executed']}; "
+          f"measured tasks_executed {ds['tasks_executed']}; cache hits {ds['cache_hits']}; "
+          f"leases' busy seconds (as the leader saw them; the task timers wrap the leader's "
+          f"functions, not the workers') {ds['stream'].busy_seconds:.3f}; "
+          f"throughput {ds['throughput']} tiles/s; parallel efficiency "
+          f"{ds['parallel_efficiency']}; retries {ds['retries']}; backups launched "
+          f"{ds['backups_launched']}; dispatch {ds['dispatch_counts']}")
+    workers = watch.report(2, each_launches=True)
+    print(f"morph_recon: {workers} launches in the workers, {leader} in the leader (the "
+          f"reference runs); leader max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    for i, row in enumerate(ds["dice"]):
+        print(f"dice tile {i}: " + " ".join(f"{d:.6f}" for d in row))
+    check(ds["backend"] == "process", f"backend {ds['backend']} == process")
+    check(ds["dice"] == ds14["dice"], "every tile's Dice list == phase 14's")
+    for key in ("tasks_total", "planned_tasks_executed"):
+        check(ds[key] == ds14[key], f"{key} {ds[key]} == phase 14's {ds14[key]}")
+    check(ds["tasks_executed"] + ds["cache_hits"] == ds["planned_tasks_executed"],
+          "executed + hits == planned")
+    return {"run_dataset_study(process), workers": workers,
+            "run_dataset_study(process), leader": leader}
+
+
+def socket_study(pipeline, tile, sets, study_dice, study_wall, counters):
+    """Phase 17: phase 4's study through ``backend="socket"`` (two workers
+    dialling the leader over loopback TCP, the store a plain temporary
+    directory), then again with one worker SIGKILLed while it holds a
+    lease. Dice == phase 4's both times. Returns {path: launches}."""
+    out = {}
+    for kill in (False, True):
+        for c in counters:
+            c.reset()
+        with WorkerWatch(pipeline, kill_after=1 if kill else None) as watch:
+            t0 = time.perf_counter()
+            st = pipeline.run_study(tile, sets, strategy="rmsr", n_workers=2, backend="socket")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        name = "SIGKILL" if kill else "clean"
+        print(f"[{name}] wall {wall:.3f} s (phase 4, one thread worker: {study_wall:.3f} s); "
+              f"tasks_total {st['tasks_total']}; planned {st['planned_tasks_executed']}; "
+              f"measured tasks_executed {st['tasks_executed']}; dispatch {st['dispatch_counts']}")
+        if kill:
+            print(f"[{name}] worker pid {watch.killed} SIGKILLed holding a lease; leases handed "
+                  f"back to the Manager (re-enqueued): {watch.reenqueued}; disconnects "
+                  f"{watch.backend.stats()['leader']['disconnects']}")
+            check(watch.killed is not None, "a worker was SIGKILLed mid-study")
+        workers = watch.report(2, each_launches=False)
+        check(st["backend"] == "socket", f"backend {st['backend']} == socket")
+        check(st["dice"] == study_dice, f"[{name}] Dice == phase 4's")
+        check(st["tasks_total"] == 128 and st["planned_tasks_executed"] == 71,
+              f"[{name}] planned counts 128 / 71")
+        out[f"run_study(socket, {name}), workers"] = workers
+        out[f"run_study(socket, {name}), leader"] = counters[0].value
+    return out
+
+
+def fleet_study(pipeline, counters, timers):
+    """Phase 18: ``run_fleet_study`` (two spawned StudyDriver processes over
+    one store directory) against one in-process StudyDriver over the same
+    ``pathology_fleet_build`` on the card: evaluated objectives and every
+    round's records equal, best equal, no corrupt read, fewer combined
+    tasks than two independent studies. The single driver's cache holds
+    the whole study (no spill to disk, about 100 s at 4096²), which changes
+    no objective and only lowers its task count. Returns {path: launches}."""
+    from repro_torch.engine import ClusterSpec
+    from repro_torch.study import StudyDriver, StudyState
+
+    for c in counters:
+        c.reset()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fleet_") as tmp:
+        t0 = time.perf_counter()
+        fl = pipeline.run_fleet_study(n_procs=2, store_dir=f"{tmp}/store", size=SIZE, n_tiles=1,
+                                      max_rounds=2)
+        fleet_s = time.perf_counter() - t0
+        used = sum(f.stat().st_size for f in pathlib.Path(tmp).rglob("*") if f.is_file())
+    leader = counters[0].value
+    fleet = fl["fleet"]
+    print(f"fleet wall {fleet_s:.3f} s; rounds {[r['kind'] for r in fl['rounds_detail']]}; tasks "
+          f"requested {fl['tasks_requested']}, executed {fl['tasks_executed']} (reuse factor "
+          f"{fl['reuse_factor']}); store {used / 2**30:.3f} GiB")
+    print(f"fleet stats: { {k: v for k, v in fleet.items() if k != 'build'} }")
+    print(f"fleet workers' report (summed over them): {fleet['build']}; leader launches {leader}")
+    for r in fl["rounds_detail"]:
+        print(f"  {r['kind']}: {json.dumps(r)}")
+    task_s, task_n, task_lock, _ = timers
+    with task_lock:
+        task_s.clear()
+        task_n.clear()
+    for c in counters:
+        c.reset()
+    t0 = time.perf_counter()
+    b = pipeline.pathology_fleet_build(size=SIZE, n_tiles=1)
+    drv = StudyDriver(b["workflow"], b["space"], b["inputs"], objective=b["objective"], seed=0,
+                      n_boot=16, engine_policy="hybrid", cluster=ClusterSpec(n_workers=1),
+                      input_keys=b["input_keys"],
+                      state=StudyState(b["space"], seed=0, cache_bytes=64 << 30))
+    try:
+        single = drv.run(max_rounds=2)
+    finally:
+        drv.close()
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+    print(f"single-process driver: wall {single_s:.3f} s (its build included); tasks executed "
+          f"{single.tasks_executed}; morph_recon launches {counters[0].value}")
+    print_task_seconds(task_s, task_n)
+    state = fl["state"]
+    check(state.evaluated == single.evaluated, "evaluated objectives equal")
+    check(len(state.rounds) == len(single.rounds) == 2, "two rounds each way")
+    for fr, sr in zip(state.rounds, single.rounds):
+        for key in ("kind", "param_sets", "outputs", "analysis", "decision"):
+            check(getattr(fr, key) == getattr(sr, key), f"{fr.kind} round: {key} equal")
+    want_best = {"params": dict(single.best[0]), "objective": single.best[1]}
+    check(fl["best"] == want_best, f"best {fl['best']} == {want_best}")
+    check(fleet["corrupt"] == 0, f"corrupt reads {fleet['corrupt']} == 0")
+    check(0 < fleet["tasks_executed"] < 2 * single.tasks_executed,
+          f"0 < fleet tasks {fleet['tasks_executed']} < 2 x {single.tasks_executed}")
+    build = fleet["build"]
+    check(build.get("on_cuda") == 2 and build.get("cuda_context") == 2,
+          f"both fleet workers on the card with a CUDA context: {build}")
+    check(build.get("morph_recon_launches", 0) > 0, "morph_recon launched in the fleet workers")
+    print(f"fleet == single-process driver: objectives, round records and best equal; best "
+          f"{fl['best']}")
+    return {"run_fleet_study, workers": build["morph_recon_launches"],
+            "run_fleet_study, leader": leader, "single-process driver": counters[0].value}
 
 
 def adaptive_study(pipeline, tiles, counters, timers):
@@ -590,6 +822,110 @@ def adaptive_study(pipeline, tiles, counters, timers):
     return launches
 
 
+def compute_apps():
+    """{pid: used MiB} of the processes ``nvidia-smi`` shows holding a
+    context on the card; empty where the tool lists none (a container may
+    hide other processes' pids)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=30,
+    ).stdout
+    apps = {}
+    for line in out.splitlines():
+        parts = [x.strip() for x in line.split(",")]
+        if len(parts) == 2 and parts[0].isdigit():
+            apps[int(parts[0])] = int(parts[1]) if parts[1].isdigit() else -1
+    return apps
+
+
+class WorkerWatch:
+    """Phases 16 and 17: the backend a study entry point builds from its
+    ``"process"``/``"socket"`` spec (caught at ``pipeline._backend_for``),
+    its worker pids and what ``nvidia-smi`` shows on the card while the
+    study runs (sampled every half second), and, with ``kill_after``, one
+    worker SIGKILLed while it holds a lease, once ``kill_after`` leases have
+    completed in the workers."""
+
+    def __init__(self, pipeline, kill_after=None):
+        self.pipeline, self.kill_after = pipeline, kill_after
+        self.backend, self.pids, self.apps = None, set(), {}
+        self.killed, self.reenqueued = None, 0
+        self._stop = threading.Event()
+
+    def __enter__(self):
+        build = self.pipeline._backend_for
+
+        def capture(*a, **kw):
+            self.backend = build(*a, **kw)
+            return self.backend
+
+        self._build, self.pipeline._backend_for = build, capture
+        self._thread = threading.Thread(target=self._watch, daemon=True)
+        self._thread.start()
+        return self
+
+    def _watch(self):
+        while not self._stop.wait(0.05):
+            b = self.backend
+            if b is None:
+                continue
+            self.pids.update(p for p in b.worker_pids() if p)
+            if int(time.monotonic() * 20) % 10 == 0:
+                for pid, mib in compute_apps().items():
+                    self.apps[pid] = max(mib, self.apps.get(pid, 0))
+            if self.kill_after is not None and self.killed is None:
+                self._maybe_kill(b)
+
+    def _maybe_kill(self, b):
+        if b.stats()["worker"].get("leases_run", 0) < self.kill_after:
+            return
+        view = b.heartbeat_view()
+        pids = dict(zip([w for w in view if w >= 0], b.worker_pids()))
+        busy = [w for w, st in view.items() if w >= 0 and st.alive and st.inflight]
+        if not busy or not pids.get(busy[0]):
+            return
+        self.killed = pids[busy[0]]
+        os.kill(self.killed, signal.SIGKILL)
+        deadline = time.monotonic() + 10
+        while time.monotonic() < deadline:  # the leases it held, handed to the Manager
+            dead = [st for w, st in b.heartbeat_view().items() if not st.alive]
+            if dead:
+                self.reenqueued = sum(len(st.inflight) for st in dead)
+                return
+            time.sleep(0.01)
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=30)
+        self.pipeline._backend_for = self._build
+
+    def report(self, n_workers, *, each_launches):
+        """Print the workers' own report (summed over them, from their last
+        heartbeats) and check that each held a CUDA context on the card and
+        that the kernel ran in them (in each, with ``each_launches``).
+        Returns the workers' kernel launches."""
+        stats = self.backend.stats()
+        w = stats["worker"]
+        build = w.get("build", {})
+        seen = sorted(set(self.apps) & self.pids)
+        print(f"backend {stats['backend']}: {n_workers} spawned workers, pids {sorted(self.pids)}; "
+              f"nvidia-smi showed {len(self.apps)} processes on the card during the study "
+              f"({sorted(self.apps.items())}), {len(seen)} of them workers {seen}")
+        print(f"workers' report (summed over them): {build}; leases run {w.get('leases_run')}, "
+              f"plan builds {w.get('plan_builds')}, route counts shm {w.get('shm_sends')} / inline "
+              f"{w.get('inline_sends')} / store {w.get('store_sends')}, fetches {w.get('fetches')}; "
+              f"workers' caches {w.get('cache')}; stores {w.get('store')}; leader {stats['leader']}")
+        lost = 1 if self.killed else 0
+        check(build.get("on_cuda", 0) >= n_workers - lost
+              and build.get("cuda_context", 0) >= n_workers - lost,
+              f"every worker's build is on the card with a CUDA context: {build}")
+        check(build.get("morph_recon_launches", 0) > 0, "morph_recon launched in the workers")
+        if each_launches:
+            check(build.get("launched_morph_recon", 0) == n_workers,
+                  f"morph_recon launched in each of the {n_workers} workers: {build}")
+        return build.get("morph_recon_launches", 0)
+
+
 def store_path(what, value, objstore):
     """Where a spill's and a rehydration's time goes: one task state on the
     card through the steps of the object tier, each timed on its own."""
@@ -642,8 +978,11 @@ def adaptive_card_vs_cpu(pipeline):
           f"{card['active']} and best equal; card {card_s:.3f} s, CPU {cpu_s:.3f} s")
 
 
+T0 = time.perf_counter()
+
+
 def phase(name: str) -> None:
-    print(f"\n== {name}", flush=True)
+    print(f"\n== {name} [{time.perf_counter() - T0:.1f} s into the run]", flush=True)
 
 
 def nvidia_smi_line() -> str:
@@ -699,9 +1038,9 @@ def recon_inputs(pipeline, tile: np.ndarray) -> dict:
 
 def mosaic_tile(pipeline, first_seed: int = 0) -> np.ndarray:
     """SIZE² tile as a mosaic of SUB² synthetic tiles with seeds first_seed,
-    first_seed + 1, ... in row-major order (one SIZE² synthetic tile costs
-    about an hour of host time; the generator's cost grows with the square
-    of the area)."""
+    first_seed + 1, ... in row-major order: the tile of phases 3, 4 and 14
+    since the first slice, kept so that their numbers stay comparable
+    (phase 18's fleet makes its own ``synthetic_tile(SIZE, SIZE)``)."""
     n = SIZE // SUB
     with concurrent.futures.ThreadPoolExecutor(max_workers=8) as pool:
         subs = list(pool.map(lambda s: pipeline.synthetic_tile(SUB, SUB, seed=s),
@@ -875,7 +1214,8 @@ def main() -> int:
     ref = pipeline.run_study(tile, [pipeline.TABLE1_SPACE.default()])
     check(ref["dice"] == [1.0], f"default-parameter dice {ref['dice']} == [1.0]")
     print("default-parameter study: dice [1.0]")
-    study_dice = out["dice"]  # phase 14 holds tile 0 of the dataset study to these
+    study_dice = out["dice"]  # phases 14 and 17 hold tile 0 of their studies to these
+    study_wall = wall
     torch.cuda.empty_cache()
 
     # -- 5. card vs CPU --------------------------------------------------
@@ -1094,6 +1434,8 @@ def main() -> int:
         print(f"bf16 D = {d} (1,300,8,4) window 120 on the CUDA cores: max abs err vs blocked "
               f"{errs[0]:.3g}, vs attention_ref {errs[1]:.3g}")
     del cases
+    d256 = gemma3_attention(flash_attention, kref)
+    torch.cuda.empty_cache()
 
     # the shared block's first application in the prefill of prompt 0
     zparams = init_params(zcfg, 0)
@@ -1179,7 +1521,7 @@ def main() -> int:
     print(f"tiles: {len(tiles)} mosaics, tile t's sub-tile seeds from {SEED_STEP}·t (tile 0 is "
           f"phase 4's), {time.perf_counter() - t0:.1f} s host; runs: phase 4's {len(sets)} and "
           f"the default set")
-    recon_launches["run_dataset_study"] = dataset_study(
+    recon_launches["run_dataset_study"], ds14 = dataset_study(
         pipeline, tiles, dsets, study_dice, counters, (task_s, task_n, task_lock, task_streams))
     torch.cuda.empty_cache()
 
@@ -1189,10 +1531,28 @@ def main() -> int:
     print(f"cut: {ADAPTIVE_TILES} of the {DATASET_TILES} tiles (the label loops set the time)")
     recon_launches["run_adaptive_study"] = adaptive_study(
         pipeline, tiles[:ADAPTIVE_TILES], counters, (task_s, task_n, task_lock, task_streams))
-    del tiles, tile
     torch.cuda.empty_cache()
     phase("15 card vs CPU at 256x256: the same adaptive study")
     adaptive_card_vs_cpu(pipeline)
+
+    # -- 16. the dataset study on process workers -------------------------------
+    phase(f"16 dataset study on process workers: run_dataset_study(backend='process') over "
+          f"{DATASET_TILES} tiles of {SIZE}x{SIZE}, two spawn workers")
+    recon_launches.update(process_dataset_study(pipeline, tiles, dsets, ds14, counters))
+    torch.cuda.empty_cache()
+
+    # -- 17. the one-tile study on socket workers -------------------------------
+    phase(f"17 one-tile study on socket workers: run_study(backend='socket') on the {SIZE}x{SIZE} "
+          f"tile, two workers over loopback TCP, then one worker SIGKILLed mid-study")
+    recon_launches.update(socket_study(pipeline, tile, sets, study_dice, study_wall, counters))
+    del tiles, tile
+    torch.cuda.empty_cache()
+
+    # -- 18. the fleet ---------------------------------------------------------
+    phase(f"18 fleet: run_fleet_study(n_procs=2, size={SIZE}, n_tiles=1, max_rounds=2) against "
+          f"one in-process StudyDriver")
+    recon_launches.update(fleet_study(pipeline, counters, (task_s, task_n, task_lock, task_streams)))
+    torch.cuda.empty_cache()
 
     # -- results -----------------------------------------------------------
     ms_k, ms_p, bound = timing[(f"seg2 {SIZE}x{SIZE}", int(default["RC"]))][:3]
@@ -1256,6 +1616,7 @@ def main() -> int:
         "bound_ms": fa_bound_ms,
         "bound_by": fa_bound_by,
         "library_ms": fa_lib_ms,
+        "gemma3_d256": d256,
     }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

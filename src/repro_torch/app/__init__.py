@@ -6,6 +6,7 @@ from repro_torch.app.pipeline import (  # noqa: F401
     build_workflow,
     run_adaptive_study,
     run_dataset_study,
+    run_fleet_study,
     run_study,
     synthetic_tile,
 )

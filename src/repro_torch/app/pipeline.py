@@ -19,6 +19,7 @@ combined with one computes in float32.
 
 from __future__ import annotations
 
+import functools
 import time
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
@@ -46,6 +47,9 @@ __all__ = [
     "run_study",
     "run_dataset_study",
     "run_adaptive_study",
+    "run_fleet_study",
+    "pathology_rpc_build",
+    "pathology_fleet_build",
     "resolve_device",
     "state_from_numpy",
     "state_to_numpy",
@@ -79,22 +83,26 @@ TABLE1_SPACE = ParamSpace.from_dict(
 def synthetic_tile(h: int = 256, w: int = 256, *, seed: int = 0) -> np.ndarray:
     """Synthetic H&E-like tile: pink stroma, dark nuclei blobs, red RBCs and
     a bright glass/background band — enough structure for every Table I
-    parameter to matter. Numpy, bit-identical to the JAX package's tile."""
+    parameter to matter. Numpy, bit-identical to the JAX package's tile.
+    Each blob is drawn inside its bounding box, the same pixels as a test
+    over the whole tile, so a 4096² tile takes seconds, not an hour."""
     rng = np.random.default_rng(seed)
     img = np.empty((h, w, 3), np.float32)
     img[..., 0] = 215 + rng.normal(0, 6, (h, w))  # R
     img[..., 1] = 170 + rng.normal(0, 6, (h, w))  # G
     img[..., 2] = 195 + rng.normal(0, 6, (h, w))  # B
-    yy, xx = np.mgrid[0:h, 0:w]
 
     def blobs(n, rmin, rmax, color, jitter=10.0):
         for _ in range(n):
             cy, cx = rng.integers(0, h), rng.integers(0, w)
             rad = rng.uniform(rmin, rmax)
-            d2 = (yy - cy) ** 2 + (xx - cx) ** 2
-            m = d2 < rad**2
+            r = int(np.ceil(rad))
+            y0, x0 = max(0, cy - r), max(0, cx - r)
+            yy, xx = np.ogrid[y0:min(h, cy + r + 1), x0:min(w, cx + r + 1)]
+            m = (yy - cy) ** 2 + (xx - cx) ** 2 < rad**2
+            box = img[y0:y0 + m.shape[0], x0:x0 + m.shape[1]]
             for c in range(3):
-                img[..., c][m] = color[c] + rng.normal(0, jitter)
+                box[..., c][m] = color[c] + rng.normal(0, jitter)
 
     blobs(max(4, h * w // 1600), 3.0, 9.0, (110, 70, 150))  # nuclei (purple)
     blobs(max(2, h * w // 6400), 2.0, 6.0, (190, 60, 70))  # RBCs (red)
@@ -220,23 +228,111 @@ def state_to_numpy(state: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
 # --------------------------------------------------------------------------
 
 
-def _backend_for(backend: Any) -> Any:
-    """Resolve the app-level ``backend`` spec: ``None``, ``"thread"`` or a
-    constructed WorkerBackend pass through to the Manager. The process and
-    socket backends, which rebuild the study in worker processes, are not
-    ported yet, and their specs raise."""
-    if isinstance(backend, str) and backend.startswith(("process", "socket")):
-        raise NotImplementedError(
-            f"backend {backend!r}: the process and socket worker backends are not "
-            "ported yet; they come with slice 3, the multi-process and multi-host "
-            "runtime"
+def _worker_stats(dev: torch.device) -> Dict[str, int]:
+    """What a worker process built by :func:`pathology_rpc_build` or
+    :func:`pathology_fleet_build` reports of its device beside its counters
+    (the backends and the fleet runner sum it over the workers): 1 if it
+    works on the card, 1 if it holds a CUDA context, its ``morph_recon``
+    kernel launches, 1 if it made any, and its peak device memory."""
+    from repro_torch.kernels import morph_recon
+
+    launches = morph_recon.LAUNCHES.value
+    on_card = dev.type == "cuda"
+    return {
+        "on_cuda": int(on_card),
+        "cuda_context": int(torch.cuda.is_initialized()),
+        "morph_recon_launches": launches,
+        "launched_morph_recon": int(launches > 0),
+        "max_memory_allocated": torch.cuda.max_memory_allocated(dev) if on_card else 0,
+    }
+
+
+def pathology_rpc_build(
+    images: Sequence[np.ndarray],
+    costs: Optional[Dict[str, float]] = None,
+    device: Union[None, str, torch.device] = None,
+) -> Dict[str, Any]:
+    """Spawn-picklable ``build`` for the RPC process and socket backends
+    (:class:`repro_torch.runtime.ProcessRpcBackend`,
+    :class:`repro_torch.runtime.SocketBackend`): each worker process calls
+    this once to construct its own workflow and input states from the tile
+    arrays shipped in the build kwargs — inputs ride the spawn boundary
+    once, at worker start; results only ever come back as SharedStore keys.
+    ``device`` is resolved in the worker: ``None`` means its card, and
+    raises there without CUDA. ``"stats"`` is :func:`_worker_stats`, which
+    the worker ships with its heartbeats.
+    """
+    dev = resolve_device(device)
+    images = [np.asarray(im) for im in images]
+    h, w = images[0].shape[:2]
+    return {
+        "workflow": build_workflow(h, w, costs),
+        "inputs": [{"raw": torch.as_tensor(im, device=dev)} for im in images],
+        "stats": functools.partial(_worker_stats, dev),
+    }
+
+
+def _backend_for(
+    backend: Any,
+    images: Sequence[np.ndarray],
+    costs: Optional[Dict[str, float]],
+    store_dir: Optional[str] = None,
+    device: Union[None, str, torch.device] = None,
+) -> Any:
+    """Resolve the app-level ``backend`` spec: ``None``/``"thread"`` pass
+    through to the Manager's default; ``"process"`` — optionally with the
+    per-optimization flag suffix of DESIGN.md §14, e.g.
+    ``"process[-async]"`` or ``"process[none,batch,max_batch=4]"`` (see
+    :func:`repro_torch.runtime.transport.process_flag_kwargs`) — builds a
+    ProcessRpcBackend whose workers reconstruct this exact study via
+    :func:`pathology_rpc_build`; a constructed WorkerBackend passes
+    through untouched. ``store_dir`` mounts the workers' stores on a
+    caller-owned directory (the adaptive study's persistent pool, so a
+    resumed study still rehydrates the workers' task outputs); without it
+    the backend owns a throwaway tempdir the caller must ``cleanup()``.
+    ``device`` is the caller's, passed to the workers' builds as given."""
+    build_kwargs = {
+        "images": [np.asarray(im) for im in images],
+        "costs": costs,
+        "device": device,
+    }
+    if isinstance(backend, str) and backend.startswith("process"):
+        from repro_torch.runtime import ProcessRpcBackend
+        from repro_torch.runtime.transport import process_flag_kwargs
+
+        return ProcessRpcBackend(
+            build=pathology_rpc_build,
+            build_kwargs=build_kwargs,
+            store_dir=store_dir,
+            **process_flag_kwargs(backend),
         )
+    if isinstance(backend, str) and backend.startswith("socket"):
+        # "socket[...]" (DESIGN.md §16): TCP control plane; workers rebuild
+        # this study from the same spawn-picklable build. A store= token in
+        # the spec (e.g. store=obj:<root>) overrides store_dir so a fleet
+        # can run with no shared filesystem at all.
+        from repro_torch.runtime import SocketBackend, socket_flag_kwargs
+
+        kwargs = socket_flag_kwargs(backend)
+        kwargs.setdefault("store", store_dir)
+        return SocketBackend(build=pathology_rpc_build, build_kwargs=build_kwargs, **kwargs)
     return backend
 
 
+def _backend_cleanup(spec: Any, backend_obj: Any) -> None:
+    """Release a backend `_backend_for` constructed (drop a throwaway
+    tempdir store); caller-provided backends are untouched."""
+    if (
+        isinstance(spec, str)
+        and (spec.startswith("process") or spec.startswith("socket"))
+        and hasattr(backend_obj, "cleanup")
+    ):
+        backend_obj.cleanup()
+
+
 def _round_detail(r: Any) -> Dict[str, Any]:
-    """One round's reporting dict: an entry of the adaptive study's
-    ``rounds_detail``."""
+    """One round's reporting dict, shared by the adaptive and fleet study
+    summaries so the two never drift."""
     return {
         "kind": r.kind,
         "n_proposed": r.n_proposed,
@@ -327,13 +423,16 @@ def run_study(
     "rtma", "rmsr", "hybrid"}; ``max_bucket_size`` bounds RTMA/hybrid
     merging (default rtma→8; rmsr merges maximally, the paper's headline
     configuration). ``n_workers`` dispatches buckets demand-driven through
-    the Manager. ``backend`` is the session's WorkerBackend: ``None`` or
-    ``"thread"`` for in-process Worker threads, or a constructed backend
-    (:func:`_backend_for`).
+    the Manager. ``backend`` picks the session's WorkerBackend — ``None``
+    or ``"thread"`` for in-process Worker threads, ``"process…"`` for RPC
+    worker processes or ``"socket…"`` for socket workers pooling results
+    through a SharedStore (:func:`_backend_for`; the reference segmentation
+    stays in-process: it is a single run), or a constructed backend.
 
     ``device`` is where the tile goes, once, and where every task state
     lives: ``None`` means ``cuda:0`` and raises without CUDA
-    (:func:`resolve_device`).
+    (:func:`resolve_device`). Worker processes resolve it in their own
+    builds.
 
     ``tasks_executed`` is the MEASURED count (cache hits subtracted) —
     the same semantics as ``run_dataset_study`` — while
@@ -352,7 +451,11 @@ def run_study(
         memory_budget_bytes=memory_budget_bytes,
     )
     raw = {"raw": torch.from_numpy(np.asarray(image)).to(dev)}
-    result = execute_plan(plan, raw, backend=_backend_for(backend), hierarchy=hierarchy)
+    backend_obj = _backend_for(backend, [image], costs, device=device)
+    try:
+        result = execute_plan(plan, raw, backend=backend_obj, hierarchy=hierarchy)
+    finally:
+        _backend_cleanup(backend, backend_obj)
 
     ref_plan = plan_study(wf, [ref_params], policy="rmsr", active_paths=1)
     ref_mask = execute_plan(ref_plan, raw).outputs[0]["mask"]
@@ -404,25 +507,32 @@ def run_dataset_study(
     tile A can be in segmentation while tile B normalizes. Returns per-tile
     Dice lists plus the streaming throughput/parallel-efficiency metrics.
     All tiles must share one shape (the plan's byte model is shape-exact).
-    ``backend`` is the session's WorkerBackend, as for :func:`run_study`;
-    the single-run reference segmentation always executes in-process.
+    ``backend`` picks the session's WorkerBackend, as for
+    :func:`run_study`; the single-run reference segmentation always
+    executes in-process.
     ``device`` is where the tiles go, once each, and where the task states
     and the reference masks stay: ``None`` means ``cuda:0`` and raises
     without CUDA.
     """
     dev = resolve_device(device)
-    backend = _backend_for(backend)
+    images = list(images)
     ref_params = reference_params or TABLE1_SPACE.default()
 
     t0 = time.perf_counter()
-    h, w, raws = _tile_inputs(list(images), dev, "run_dataset_study")
+    h, w, raws = _tile_inputs(images, dev, "run_dataset_study")
     wf, plan, cluster = _plan_image_study(
         h, w, param_sets,
         strategy=strategy, max_bucket_size=max_bucket_size,
         active_paths=active_paths, costs=costs, n_workers=n_workers,
         memory_budget_bytes=memory_budget_bytes,
     )
-    stream = execute_study(plan, raws, cluster=cluster, backend=backend, hierarchy=hierarchy)
+    backend_obj = _backend_for(backend, images, costs, device=device)
+    try:
+        stream = execute_study(
+            plan, raws, cluster=cluster, backend=backend_obj, hierarchy=hierarchy
+        )
+    finally:
+        _backend_cleanup(backend, backend_obj)
     ref_masks = _reference_masks(wf, ref_params, raws, cluster)
 
     n = len(raws)
@@ -495,8 +605,8 @@ def run_adaptive_study(
     )
 
     dev = resolve_device(device)
-    backend = _backend_for(backend)
-    h, w, raws = _tile_inputs(list(images), dev, "run_adaptive_study")
+    images = list(images)
+    h, w, raws = _tile_inputs(images, dev, "run_adaptive_study")
     wf = build_workflow(h, w, costs)
     cluster = ClusterSpec(n_workers=n_workers)
     ref_masks = _reference_masks(wf, reference_params or space.default(), raws, cluster)
@@ -523,22 +633,151 @@ def run_adaptive_study(
         n_boot=n_boot,
         input_keys=[f"tile{i}" for i in range(len(raws))],
         store_dir=store_dir,
-        backend=backend,
+        # the workers' spill stores mount the SAME store_dir as the
+        # study state, so a resumed study rehydrates worker-computed task
+        # outputs too — without it, backend="process" would silently lose
+        # the zero-recompute-resume guarantee (the workers' caches are
+        # where the results live in spec mode)
+        backend=_backend_for(backend, images, costs, store_dir=store_dir, device=device),
         hierarchy=hierarchy,
     )
     try:
         state = driver.run(max_rounds=max_rounds)
         # publish barrier: push the round-persistent cache through to the
-        # store's disk tier and report how many entries that persisted
+        # store's disk tier and report how many entries that persisted. In
+        # process-backend mode the leader cache is structurally empty — the
+        # workers own the caches and flush them at each round install and
+        # again at session shutdown (driver.close below) — so 0 here means
+        # the durability lives worker-side, not that results were lost.
         cache_flushed = state.cache.flush()
         summary = driver.summary()
     finally:
         driver.close()
+        _backend_cleanup(backend, driver.backend)
     return {
         **summary,
         "cache_flushed": cache_flushed,
         "wall_seconds": time.perf_counter() - t0,
         "rounds_detail": [_round_detail(r) for r in state.rounds],
         "reference_masks": [m.cpu().numpy() for m in ref_masks],
+        "state": state,
+    }
+
+
+def _leader_objective(leaf_state: Any, input_index: int) -> float:
+    raise RuntimeError(
+        "the fleet leader never evaluates; its objective is a placeholder"
+    )
+
+
+def pathology_fleet_build(
+    size: int = 48,
+    n_tiles: int = 2,
+    seed: int = 0,
+    space_dict: Optional[Dict[str, list]] = None,
+    costs: Optional[Dict[str, float]] = None,
+    leader: bool = False,
+    device: Union[None, str, torch.device] = None,
+) -> Dict[str, Any]:
+    """Spawn-picklable fleet ``build`` for the pathology workflow
+    (:func:`repro_torch.study.run_fleet_study`): each fleet process calls
+    this once to construct its own workflow, tiles, reference masks and Dice
+    objective — everything process-local and deterministic, so every
+    process computes identical references (tasks are pure and tiles are
+    seeded). With ``leader=True`` (the fleet runner passes it for the
+    leader, which proposes/analyzes but never evaluates) the expensive
+    reference segmentation is skipped and the objective is a placeholder
+    that raises if ever called. ``device`` is resolved in each process, as
+    for :func:`pathology_rpc_build`; ``"stats"`` is :func:`_worker_stats`."""
+    space = TABLE1_SPACE if space_dict is None else ParamSpace.from_dict(space_dict)
+    dev = resolve_device(device)
+    wf = build_workflow(size, size, costs)
+    tiles = [synthetic_tile(size, size, seed=seed + t) for t in range(n_tiles)]
+    raws = [{"raw": torch.as_tensor(im, device=dev)} for im in tiles]
+    if leader:
+        objective: Any = _leader_objective
+    else:
+        ref_masks = _reference_masks(wf, space.default(), raws, ClusterSpec())
+
+        def objective(leaf_state: Any, input_index: int) -> float:
+            return 1.0 - float(dice(leaf_state["mask"], ref_masks[input_index]))
+
+    return {
+        "workflow": wf,
+        "space": space,
+        "inputs": raws,
+        "objective": objective,
+        "input_keys": [f"tile{i}" for i in range(n_tiles)],
+        "stats": functools.partial(_worker_stats, dev),
+    }
+
+
+def run_fleet_study(
+    *,
+    n_procs: int = 2,
+    store_dir: str,
+    size: int = 48,
+    n_tiles: int = 2,
+    space: ParamSpace = TABLE1_SPACE,
+    max_rounds: int = 4,
+    strategy: str = "hybrid",
+    n_workers: int = 1,
+    seed: int = 0,
+    n_boot: int = 16,
+    sa_policy: Optional[Any] = None,
+    samplers: Optional[Dict[str, Any]] = None,
+    worker_backend: Any = None,
+    device: Union[None, str, torch.device] = None,
+) -> Dict[str, Any]:
+    """Adaptive pathology study executed by a fleet of ``n_procs``
+    StudyDriver processes pooling one :class:`~repro_torch.runtime.SharedStore`
+    on ``store_dir`` (DESIGN.md §12).
+
+    Thin caller of :func:`repro_torch.study.run_fleet_study` with the
+    pathology ``build``; the returned summary mirrors
+    :func:`run_adaptive_study` plus the fleet's cross-process accounting
+    (``fleet`` key: combined task counts, corrupt-entry reads — must be 0 —
+    lock-elided double-writes, cross-process store rehydrations, and the
+    workers' device report summed over them). ``device`` goes to every
+    process's build: ``None`` means each process's card, and raises there
+    without CUDA.
+    """
+    from repro_torch.study import run_fleet_study as _run_fleet
+
+    t0 = time.perf_counter()
+    state, fleet = _run_fleet(
+        pathology_fleet_build,
+        {
+            "size": size,
+            "n_tiles": n_tiles,
+            "seed": seed,
+            "space_dict": {p.name: list(p.values) for p in space.params},
+            "device": device,
+        },
+        n_procs=n_procs,
+        store_dir=store_dir,
+        max_rounds=max_rounds,
+        seed=seed,
+        engine_policy=strategy,
+        cluster=ClusterSpec(n_workers=n_workers),
+        sa_policy=sa_policy,
+        samplers=samplers,
+        n_boot=n_boot,
+        worker_backend=worker_backend,
+    )
+    return {
+        "rounds": len(state.rounds),
+        "tasks_requested": state.tasks_requested,
+        "tasks_executed": state.tasks_executed,
+        "reuse_factor": reuse_factor(state.tasks_executed, state.tasks_requested),
+        "active": list(state.active),
+        "frozen": dict(state.frozen),
+        "phase": state.phase,
+        "best": None
+        if state.best is None
+        else {"params": dict(state.best[0]), "objective": state.best[1]},
+        "fleet": fleet,
+        "wall_seconds": time.perf_counter() - t0,
+        "rounds_detail": [_round_detail(r) for r in state.rounds],
         "state": state,
     }

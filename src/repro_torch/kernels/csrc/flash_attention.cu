@@ -32,7 +32,13 @@
 // arithmetic is IEEE fp32 on the CUDA cores (no TF32), so fp32 inputs agree
 // with the dense oracle to 2e-5. Shared memory is (3·64·(D|1) + 64·65)·4
 // bytes, 78,848 at D = 80: dynamic, above the 48 KB static limit, so two
-// blocks fit an SM.
+// blocks fit an SM. D goes up to 256 (gemma3's and PaliGemma's head dim):
+// 16 output columns a thread, 214,016 bytes of shared memory, one block an
+// SM, under the 232,448-byte opt-in. ptxas (-Xptxas -v, for sm_90a)
+// gives the 16-column instances 128 registers a thread and no spill; the
+// 6- to 15-column ones 127–128 registers and no spill; the 1- and 5-column
+// ones (D <= 16 and D = 65..80) a 16-byte stack frame with 24–64 bytes of
+// spill stores.
 //
 // What bounds it on this card. Causal attention needs 4·D flops for each
 // (query, key) pair it keeps, per head, and reads q, k, v and writes the
@@ -54,7 +60,7 @@ constexpr int BQ = 64;        // query rows a block
 constexpr int BK = 64;        // keys a tile
 constexpr int THREADS = 256;  // a 16×16 grid of threads
 constexpr int LDP = BK + 1;   // row length of the probability tile
-constexpr int MAX_DPT = 8;    // output columns a thread: D <= 128
+constexpr int MAX_DPT = 16;   // output columns a thread: D <= 256
 constexpr float NEG = -1e30f;
 
 // Element strides of the (B, S, heads, D) dims of q, k and v.
@@ -243,6 +249,8 @@ int dispatch(int dpt, const void* q, const void* k, const void* v, void* out, in
     return launch<T, N>(q, k, v, out, B, Sq, Sk, H, KV, D, causal, has_window, window, \
                         q_offset, scale, st, s);
     FA_CASE(1) FA_CASE(2) FA_CASE(3) FA_CASE(4) FA_CASE(5) FA_CASE(6) FA_CASE(7) FA_CASE(8)
+    FA_CASE(9) FA_CASE(10) FA_CASE(11) FA_CASE(12) FA_CASE(13) FA_CASE(14) FA_CASE(15)
+    FA_CASE(16)
 #undef FA_CASE
     default:
       return static_cast<int>(cudaErrorInvalidValue);

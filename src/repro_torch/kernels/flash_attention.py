@@ -44,7 +44,8 @@ __all__ = ["build", "build_wgmma", "LAUNCHES", "WGMMA_LAUNCHES", "flash_attentio
            "shared_memory_bytes", "wgmma_shared_memory_bytes", "tma_layout_error",
            "attention_ref", "flash_attention_blocked"]
 
-MAX_HEAD_DIM = 128  # eight output columns a thread (csrc/flash_attention.cu)
+MAX_HEAD_DIM = 256  # the CUDA-core kernel: sixteen output columns a thread (csrc/flash_attention.cu)
+WGMMA_MAX_HEAD_DIM = 128  # the tensor-core kernel's tiles (csrc/flash_attention_wgmma.cu)
 WGMMA_THREADS = 384  # two consumer warpgroups and a producer (csrc/flash_attention_wgmma.cu)
 
 
@@ -143,7 +144,7 @@ def flash_attention_cuda(
     the CUDA-core kernel otherwise.
 
     q (B, Sq, H, D) and k, v (B, Sk, KV, D) in one dtype, float32 or
-    bfloat16, on one CUDA device, with H a multiple of KV and D at most 128.
+    bfloat16, on one CUDA device, with H a multiple of KV and D at most 256.
     ``q_offset`` is the absolute position of q's first row. Returns
     (B, Sq, H, D) in q's dtype. Launches once on the current stream and does
     not synchronise.
@@ -183,7 +184,7 @@ def flash_attention_simt(
     causal: bool = True, window: Optional[int] = None, q_offset: int = 0,
 ) -> torch.Tensor:
     """The CUDA-core kernel, ``csrc/flash_attention.cu``: any strides, fp32
-    or bf16, D at most 128. The kernel fixes its own 64×64 tiles; the result
+    or bf16, D at most 256. The kernel fixes its own 64×64 tiles; the result
     does not depend on them."""
     _check(q, k, v)
     bsz, sq, h, d = q.shape
@@ -219,7 +220,7 @@ def flash_attention_wgmma(
     sk, kv = k.shape[1], k.shape[2]
     if not uses_tensor_cores(q.dtype, d):
         raise ValueError(f"the tensor-core kernel takes bf16 with D a multiple of 16 up to "
-                         f"{MAX_HEAD_DIM}, got {q.dtype} with D {d}")
+                         f"{WGMMA_MAX_HEAD_DIM}, got {q.dtype} with D {d}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         why = tma_layout_error(t)
         if why:

@@ -245,16 +245,16 @@ def make_backend(spec: Any) -> "WorkerBackend":
     (with or without a ``[...]`` flag suffix — see
     :func:`process_flag_kwargs`) cannot be built here — a
     :class:`ProcessRpcBackend` needs a ``build`` for its workers, so the
-    caller must construct it. ``"socket"`` raises ``NotImplementedError``
-    until the socket backend is ported (slice 3)."""
+    caller must construct it."""
     if spec is None or spec == "thread":
         return ThreadBackend()
     if isinstance(spec, str) and spec.startswith("socket"):
-        raise NotImplementedError(
-            f"backend spec {spec!r}: the socket backend (runtime/net.py) is not "
-            "ported yet; it comes with slice 3, the multi-process and multi-host "
-            "runtime"
-        )
+        # unlike "process", a socket backend IS constructible by name: the
+        # leader only listens — workers bring their own build context when
+        # they dial in (or the spec's spawn mode launches loopback workers)
+        from repro_torch.runtime.net import SocketBackend, socket_flag_kwargs
+
+        return SocketBackend(**socket_flag_kwargs(spec))
     if isinstance(spec, str):
         raise ValueError(
             f"backend spec {spec!r} is not constructible from a name alone; "
@@ -779,6 +779,7 @@ class _RpcWorker:
         }
         self.workflow = None
         self.inputs: List[Any] = []
+        self.ctx_stats: Optional[Callable[[], Dict[str, Any]]] = None
         self.store = None
         self.cache = None
         self.ctx_error: Optional[str] = None
@@ -803,6 +804,9 @@ class _RpcWorker:
             self.cache = ResultCache(cache_bytes, spill_store=self.store)
             self.workflow = spec.get("workflow")
             self.inputs = list(spec.get("inputs") or ())
+            # the build's own report (its device, its kernel launches),
+            # shipped with the counters
+            self.ctx_stats = spec.get("stats")
         except BaseException:  # noqa: BLE001 — park and report per-lease
             self.ctx_error = traceback.format_exc()
 
@@ -1137,6 +1141,8 @@ class _RpcWorker:
                 out["cache"] = self.cache.counters()
             if self.store is not None:
                 out["store"] = self.store.counters()
+            if self.ctx_stats is not None:
+                out["build"] = self.ctx_stats()
         except BaseException:  # noqa: BLE001 — stats must never kill hb
             pass
         return out
@@ -1164,6 +1170,13 @@ class _RpcWorker:
                 if self._stop:
                     self._flush_comps(self._comp_buf)
                     self._comp_buf = []
+                    # a last heartbeat: the counters as the worker retires,
+                    # which the leader's shutdown reads before it joins
+                    try:
+                        self._send({"t": "hb", "wid": self.wid,
+                                    "stats": self._stats_snapshot()})
+                    except (OSError, ValueError, BrokenPipeError):
+                        pass
                     break  # queued leases are abandoned; retry re-drives
                 if self._pending:
                     if not self._buffer_comp(self._run_lease(self._pending.popleft())):
@@ -1213,6 +1226,21 @@ def _rpc_worker_main(
 # ---------------------------------------------------------------------------
 # ProcessRpcBackend — spawn workers behind the pickle control plane
 # ---------------------------------------------------------------------------
+
+
+def worker_context(mp_context: str):
+    """The ``multiprocessing`` context worker processes start from. ``fork``
+    is refused where a CUDA card is present: a forked child cannot use a
+    CUDA context its parent holds, and the workers' builds put their inputs
+    on the card (``spawn``, the default, starts each worker fresh)."""
+    import multiprocessing
+
+    if mp_context == "fork" and torch.cuda.is_available():
+        raise ValueError(
+            "mp_context='fork' with a CUDA card present: worker processes "
+            "open their own CUDA contexts and must start with 'spawn'"
+        )
+    return multiprocessing.get_context(mp_context)
 
 
 def stop_processes(procs, *, grace: float = 5.0) -> None:
@@ -1366,8 +1394,9 @@ class ProcessRpcBackend:
     def start(self, n_workers: int) -> None:
         if self._handles:
             raise RuntimeError("ProcessRpcBackend already started")
-        import multiprocessing
         import uuid
+
+        mp = worker_context(self.mp_context)
 
         self._session = uuid.uuid4().hex[:12]
         self._worker_stats = {}  # analysis: ok[locks] init phase, workers spawn below
@@ -1384,7 +1413,6 @@ class ProcessRpcBackend:
             "max_delay_ms": self.max_delay_ms,
             "shm_max_bytes": self.shm_max_bytes,
         }
-        mp = multiprocessing.get_context(self.mp_context)
         handles = []
         for wid in range(max(1, n_workers)):
             parent, child = mp.Pipe(duplex=True)
@@ -1698,7 +1726,14 @@ class ProcessRpcBackend:
                     _send_frame(h.conn, self._lock, {"t": "stop"})
                 except (OSError, ValueError, BrokenPipeError):
                     pass
-        stop_processes([h.proc for h in self._handles], grace=self.shutdown_grace)
+        # within the same grace: read each worker's last frames until it
+        # hangs up, so stats() keeps its final counters (a heartbeat only
+        # reaches the leader while it polls)
+        deadline = time.monotonic() + self.shutdown_grace
+        for h in self._handles:
+            self._drain_final_stats(h, deadline)
+        stop_processes([h.proc for h in self._handles],
+                       grace=max(0.0, deadline - time.monotonic()))
         for h in self._handles:
             try:
                 h.conn.close()
@@ -1707,6 +1742,19 @@ class ProcessRpcBackend:
         self._handles = []
         self._purge_session_entries()
         self._sweep_shm()
+
+    def _drain_final_stats(self, h: _WorkerHandle, deadline: float) -> None:
+        """After the stop frame: read what a worker still sends until it
+        hangs up or ``deadline`` passes, keeping its heartbeat counters
+        (the last one it sends as it retires carries its final counts)."""
+        try:
+            while h.conn.poll(max(0.0, deadline - time.monotonic())):
+                msg = _recv_frame(h.conn)
+                if msg.get("t") == "hb" and msg.get("stats"):
+                    with self._state_lock:
+                        self._worker_stats[h.wid] = msg["stats"]
+        except (EOFError, OSError, TransportError):
+            pass
 
     def _purge_session_entries(self) -> None:
         """Best-effort removal of THIS session's ``rpc:<session>:…`` result

@@ -31,7 +31,6 @@ exactly that against a one-shot oracle.
 
 from __future__ import annotations
 
-import multiprocessing
 import os
 import time
 from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
@@ -42,6 +41,7 @@ from repro_torch.core.workflow import Workflow
 from repro_torch.engine import ClusterSpec, MemoryBudget, execute_study, plan_study
 from repro_torch.engine.types import CACHING_POLICIES
 from repro_torch.runtime.manager import Manager
+from repro_torch.runtime.transport import _merge_int_tree, worker_context
 from repro_torch.study.policies import Decision, ScreenThenRefinePolicy
 from repro_torch.study.samplers import (
     MoatSampler,
@@ -476,6 +476,7 @@ def _fleet_worker_init(
             cache_bytes=cache_bytes or DEFAULT_CACHE_BYTES,
             store=store,
         )
+        _FLEET_WORKER["stats"] = spec.get("stats")
         _FLEET_WORKER["driver"] = StudyDriver(
             spec["workflow"],
             spec["space"],
@@ -513,7 +514,12 @@ def _fleet_worker_eval(args: Tuple[List[Any], List[str]]) -> Dict[str, Any]:
     before = (st.store.corrupt, st.store.dedup_writes, st.store.disk_hits)
     y, stats = drv.evaluate(shard)
     stats["cache_flushed"] = st.cache.flush()
+    report = _FLEET_WORKER.get("stats")
     return {
+        # the build's own report (its device, its kernel launches), over
+        # the worker's life so far
+        "pid": os.getpid(),
+        "build_stats": report() if report is not None else {},
         "evaluated": [[_ps_to_json(ps), y_i] for ps, y_i in zip(shard, y)],
         # only the entries THIS shard added: the leader already holds the
         # union it sent, so shipping the whole ledger back every round
@@ -554,12 +560,16 @@ def run_fleet_study(
     reads observed anywhere in the fleet (must stay 0), double-writes the
     per-key locks elided, and cross-process store rehydrations.
 
-    Copied with the module and not yet driven by a test or a card run: its
-    spawn workers come with slice 3 of the port (the multi-process
-    runtime).
+    ``fleet_stats["build"]`` sums what each worker's build reports of
+    itself (a ``"stats"`` callable in the build's mapping: for the
+    pathology build its device and ``morph_recon`` launches) over the
+    workers, as of each one's last shard; ``"worker_pids"`` names them.
+    ``mp_context="fork"`` is refused where a CUDA card is present
+    (:func:`repro_torch.runtime.transport.worker_context`).
     """
     if n_procs < 1:
         raise ValueError("run_fleet_study needs n_procs >= 1")
+    mp = worker_context(mp_context)
     # worker_backend crosses the spawn boundary via Pool initargs, so it
     # must be a picklable SPEC — None/"thread", or a module-level zero-arg
     # factory returning a WorkerBackend. A constructed backend instance
@@ -616,6 +626,7 @@ def run_fleet_study(
     # store serves the values regardless of ledger annotations, so results
     # and reuse are unaffected.)
     broadcast: set = set()
+    build_stats: Dict[int, Dict[str, Any]] = {}  # the latest report of each worker
 
     def fleet_evaluate(
         delta: Sequence[ParamSet],
@@ -650,6 +661,7 @@ def run_fleet_study(
             fleet_stats["dedup_writes"] += int(p["dedup_writes"])
             fleet_stats["store_disk_hits"] += int(p["store_disk_hits"])
             fleet_stats["cache_flushed"] += int(p["stats"].get("cache_flushed", 0))
+            build_stats[p["pid"]] = p["build_stats"]
         fleet_stats["shards_dispatched"] += len(shards)
         return y_by_ps, agg
 
@@ -668,7 +680,7 @@ def run_fleet_study(
         input_keys=spec.get("input_keys"),
         evaluate_delta=fleet_evaluate,
     )
-    pool = multiprocessing.get_context(mp_context).Pool(
+    pool = mp.Pool(
         n_procs,
         initializer=_fleet_worker_init,
         initargs=(
@@ -693,4 +705,8 @@ def run_fleet_study(
     fleet_stats["tasks_executed"] = state.tasks_executed
     fleet_stats["tasks_requested"] = state.tasks_requested
     fleet_stats["committed_keys"] = len(store.committed_keys())
+    fleet_stats["worker_pids"] = sorted(build_stats)
+    fleet_stats["build"] = {}
+    for report in build_stats.values():
+        _merge_int_tree(fleet_stats["build"], report)
     return state, fleet_stats

@@ -153,9 +153,11 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 def test_shared_memory_fits_two_blocks_an_sm():
     """At Zamba2's head dim 80 a block takes 78,848 bytes (the kernel
     source's figure): two fit the 228 KB of an H100 SM, one fits up to the
-    largest head dim."""
+    largest head dim, 256 (gemma3's), at 214,016 bytes."""
     assert tkernel.shared_memory_bytes(80) == 78_848
     assert 2 * tkernel.shared_memory_bytes(80) <= 227 * 1024
+    assert tkernel.MAX_HEAD_DIM == 256
+    assert tkernel.shared_memory_bytes(256) == 214_016
     assert tkernel.shared_memory_bytes(tkernel.MAX_HEAD_DIM) <= 227 * 1024
 
 
@@ -235,8 +237,52 @@ def test_shared_memory_formulas_match_the_sources(card):
     simt, wgmma = tkernel.build().lib, tkernel.build_wgmma().lib
     for d in range(1, tkernel.MAX_HEAD_DIM + 1):
         assert simt.flash_attention_smem(d) == tkernel.shared_memory_bytes(d), d
-    for d in range(16, tkernel.MAX_HEAD_DIM + 1, 16):
+    for d in range(16, tkernel.WGMMA_MAX_HEAD_DIM + 1, 16):
         assert wgmma.flash_attention_wgmma_smem(d) == tkernel.wgmma_shared_memory_bytes(d), d
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [160, 192, 256])
+def test_cuda_kernel_head_dims_over_128(card, d):
+    """Head dims above the tensor-core kernel's 128 (gemma3's and
+    PaliGemma's 256) on the CUDA-core kernel: fp32 within 2e-5 of the
+    oracle, causal and windowed, with GQA; bf16 goes there by dispatch."""
+    t = _t(qkv(1, 200, 200, 4, 1, d, seed=d), card)
+    for window in (None, 64):
+        before, wgmma = tkernel.LAUNCHES.value, tkernel.WGMMA_LAUNCHES.value
+        got = tkernel.flash_attention_cuda(*t, window=window)
+        torch.cuda.synchronize()
+        assert tkernel.LAUNCHES.value == before + 1 and tkernel.WGMMA_LAUNCHES.value == wgmma
+        _close(got, tref.attention_ref(*t, window=window))
+    tb = [x.to(torch.bfloat16) for x in t]
+    before, wgmma = tkernel.LAUNCHES.value, tkernel.WGMMA_LAUNCHES.value
+    got = tkernel.flash_attention_cuda(*tb)
+    torch.cuda.synchronize()
+    assert tkernel.LAUNCHES.value == before + 1 and tkernel.WGMMA_LAUNCHES.value == wgmma
+    np.testing.assert_allclose(_np(got), _np(tref.flash_attention_blocked(*tb)),
+                               rtol=2 ** -7, atol=2 ** -9)
+
+
+@pytest.mark.gpu
+def test_wgmma_refuses_head_dims_over_128(card):
+    """The tensor-core kernel keeps its D <= 128 tiles: called by name on
+    bf16 at D = 256 it raises, and never launches."""
+    t = _t(qkv(1, 64, 64, 2, 2, 256, seed=0), card, torch.bfloat16)
+    before = tkernel.WGMMA_LAUNCHES.value
+    with pytest.raises(ValueError, match="up to 128"):
+        tkernel.flash_attention_wgmma(*t)
+    assert tkernel.WGMMA_LAUNCHES.value == before
+
+
+@pytest.mark.gpu
+def test_head_dim_over_256_is_refused(card):
+    """Above the CUDA-core kernel's 16 columns a thread the wrapper raises
+    and launches nothing."""
+    t = _t(qkv(1, 8, 8, 1, 1, 272, seed=0), card)
+    before = tkernel.LAUNCHES.value
+    with pytest.raises(ValueError, match="D <= 256"):
+        tkernel.flash_attention_cuda(*t)
+    assert tkernel.LAUNCHES.value == before
 
 
 @pytest.mark.gpu
@@ -307,12 +353,15 @@ def test_bf16_blocked_rounds_p_only_on_the_tensor_core_path():
 @pytest.mark.parametrize("dtype,d,want", [
     (torch.bfloat16, 16, True), (torch.bfloat16, 80, True), (torch.bfloat16, 128, True),
     (torch.bfloat16, 8, False), (torch.bfloat16, 72, False), (torch.bfloat16, 144, False),
+    (torch.bfloat16, 160, False), (torch.bfloat16, 256, False),
     (torch.float32, 80, False), (torch.float32, 64, False), (torch.float16, 64, False),
 ])
 def test_dispatch_rule_between_the_two_kernels(dtype, d, want):
     """bf16 with D a multiple of 16 up to 128 goes to the tensor-core
-    kernel; fp32 (the 2e-5 bar) and other head dims to the CUDA-core one."""
+    kernel; fp32 (the 2e-5 bar) and other head dims, 160 and 256 too, to
+    the CUDA-core one."""
     assert tkernel.uses_tensor_cores(dtype, d) is want
+    assert not want or d <= tkernel.WGMMA_MAX_HEAD_DIM
 
 
 def test_wgmma_shared_memory_and_blocks_an_sm():

@@ -41,7 +41,8 @@ def test_imports_with_jax_blocked():
         "import repro_torch.kernels.ssm_scan, repro_torch.runtime.tensors\n"
         "import repro_torch.kernels.flash_attention, repro_torch.models.attention\n"
         "import repro_torch.study, repro_torch.runtime.objstore\n"
-        "from repro_torch.app import run_dataset_study, run_adaptive_study\n"
+        "import repro_torch.runtime.net, repro_torch.runtime.simulator\n"
+        "from repro_torch.app import run_dataset_study, run_adaptive_study, run_fleet_study\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.')) "
         "for m in sys.modules if sys.modules[m] is not None)\n"
     )

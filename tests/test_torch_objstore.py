@@ -247,7 +247,7 @@ def test_tensor_round_trip_across_mounts(tmp_path, dtype, medium):
 
 
 # ---------------------------------------------------------------------------
-# Specs whose backends come with the multi-process slice
+# Specs whose backends came with the multi-process slice
 # ---------------------------------------------------------------------------
 
 
@@ -258,21 +258,32 @@ def test_mount_store_obj_is_the_ports_tier(tmp_path):
 
 @pytest.mark.parametrize("spec", ["socket", "socket[127.0.0.1:0]"])
 def test_make_backend_socket_names_its_slice(spec):
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        make_backend(spec)
+    """``"socket"`` names the port's socket backend (``runtime/net.py``),
+    which listens only when started; until slice 3 it raised."""
+    backend = make_backend(spec)
+    try:
+        assert type(backend).__module__ == "repro_torch.runtime.net"
+        assert type(backend).__name__ == "SocketBackend"
+        assert backend.bind == "127.0.0.1:0" and backend.spawn_workers
+    finally:
+        backend.cleanup()
 
 
 @pytest.mark.parametrize("entry", ["run_study", "run_dataset_study", "run_adaptive_study"])
 @pytest.mark.parametrize("backend", ["process", "process[none]", "socket"])
 def test_study_entry_points_refuse_unported_backends(entry, backend):
+    """The study entry points take the process and socket specs (until
+    slice 3 they raised) and give the thread backend's Dice and counts."""
     tile = synthetic_tile(8, 8, seed=0)
     call = {
-        "run_study": lambda: run_study(tile, [TABLE1_SPACE.default()], backend=backend,
-                                       device="cpu"),
-        "run_dataset_study": lambda: run_dataset_study([tile], [TABLE1_SPACE.default()],
-                                                       backend=backend, device="cpu"),
-        "run_adaptive_study": lambda: run_adaptive_study([tile], backend=backend,
-                                                         device="cpu"),
+        "run_study": lambda b: run_study(tile, [TABLE1_SPACE.default()], backend=b,
+                                         device="cpu"),
+        "run_dataset_study": lambda b: run_dataset_study([tile], [TABLE1_SPACE.default()],
+                                                         backend=b, device="cpu"),
+        "run_adaptive_study": lambda b: run_adaptive_study([tile], backend=b, device="cpu",
+                                                           max_rounds=1),
     }[entry]
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        call()
+    got, want = call(backend), call("thread")
+    assert got["backend"] == backend.split("[")[0]
+    for key in ("dice", "tasks_total", "tasks_executed", "rounds_detail", "best"):
+        assert got.get(key) == want.get(key), key

@@ -24,7 +24,11 @@ logits lie from the CPU's own run:
 
 Each state is also shown layer by layer (Mamba2 layers, then the shared
 attention block's applications), which says where along the depth the
-difference starts.
+difference starts. Last, the op that seeds it: the ``both plain`` prefill
+runs on the card and on the CPU under a recorder of every ATen op, and the
+two op sequences are compared output by output; the first op whose output
+differs, and the first that differs by more than 1e-3 in norm, are printed
+with their place in the model's source.
 
     python3 tools/zamba2_card_vs_cpu.py    # needs a CUDA card
 """
@@ -34,6 +38,7 @@ from __future__ import annotations
 import pathlib
 import subprocess
 import sys
+import traceback
 from contextlib import ExitStack, contextmanager
 from types import SimpleNamespace
 from unittest import mock
@@ -47,6 +52,7 @@ from repro_torch import configs  # noqa: E402
 from repro_torch.kernels import flash_attention, ref as kref, ssm_scan  # noqa: E402
 from repro_torch.models import attention as attention_mod, init_params, prefill  # noqa: E402
 from repro_torch.models import ssm as ssm_mod  # noqa: E402
+from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
 
 @contextmanager
@@ -112,6 +118,67 @@ def per_layer(name: str, a: torch.Tensor, b: torch.Tensor):
     return [rel(a[i], b[i]) for i in range(a.shape[0])]
 
 
+class OpRecorder(TorchDispatchMode):
+    """Every ATen op's name, its innermost place in ``repro_torch`` and a
+    host copy of its tensor outputs, in the order the ops ran."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        site = next((f"{pathlib.Path(f.filename).name}:{f.lineno} {f.name}"
+                     for f in reversed(traceback.extract_stack())
+                     if "repro_torch" in f.filename), "?")
+        outs = out if isinstance(out, (tuple, list)) else (out,)
+        self.ops.append((str(func), site, [o.detach().to("cpu", copy=True) for o in outs
+                                           if isinstance(o, torch.Tensor)]))
+        return out
+
+
+def first_moving_ops(cfg, card_params, cpu_params, toks, swaps):
+    """Run the prefill under :class:`OpRecorder` on the card and on the
+    CPU, with ``swaps`` applied to both, and print the first op whose
+    output differs at all and the first whose relative difference in norm
+    is over 1e-3, with the op before it."""
+    runs = []
+    for params in (card_params, cpu_params):
+        with ExitStack() as stack:
+            for swap in swaps:
+                stack.enter_context(swap())
+            with OpRecorder() as rec:
+                prefill(cfg, params, toks, max_len=20)
+        runs.append(rec.ops)
+    card, cpu = runs
+    print(f"\nthe op that seeds it (card, both plain, against the CPU): {len(card)} ops on the "
+          f"card, {len(cpu)} on the CPU")
+    found = {}
+    for i, ((name, site, outs), (cname, csite, couts)) in enumerate(zip(card, cpu)):
+        if name != cname or len(outs) != len(couts):
+            print(f"  the op sequences part at op {i}: {name} at {site} on the card, {cname} at "
+                  f"{csite} on the CPU")
+            break
+        for a, b in zip(outs, couts):
+            if a.shape != b.shape or not a.is_floating_point() and a.dtype != torch.bool:
+                continue
+            if torch.equal(a, b):
+                continue
+            diff = (a.double() - b.double())
+            r = float(diff.norm() / max(float(b.double().norm()), 1e-30))
+            for key, bar in (("first op to differ", 0.0), ("first op over 1e-3", 1e-3)):
+                if key not in found and r > bar:
+                    found[key] = i
+                    before = card[i - 1] if i else ("-", "-", [])
+                    print(f"  {key}: op {i}, {name} at {site}, {tuple(a.shape)} {a.dtype}: "
+                          f"max abs diff {float(diff.abs().max())}, relative {r:.4e} "
+                          f"(the op before: {before[0]} at {before[1]})")
+        if len(found) == 2:
+            break
+    if not found:
+        print("  every op's output equal")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
@@ -165,6 +232,7 @@ def main() -> int:
         for k in base:
             layers = " ".join(f"{r:.4%}" for r in per_layer(k, got[k], base[k]))
             print(f"  {k}: {rel(got[k], base[k]):.4%}  by layer: {layers}")
+    first_moving_ops(cfg, card_params, cpu_params, toks, (plain_attention, plain_scan))
     return 0
 
 
