@@ -61,7 +61,13 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
 18. ``run_fleet_study`` (two spawned StudyDriver processes over one store
     directory, 2 rounds on one SIZE² tile) against one in-process
     StudyDriver over the same build: round records and best equal, no
-    corrupt read.
+    corrupt read;
+19. the study service, ``repro_torch.service.StudyServer`` over
+    ``pathology_service_build`` (one SIZE² tile, two thread workers): an
+    explicit job equal to ``1 - Dice`` of ``run_study``, identical
+    concurrent submissions executed once, a cancelled job, device memory
+    returned, and ``python -m repro_torch.service serve`` answering two TCP
+    tenants.
 
 Phase 7 also holds ``ssm_scan`` at Mamba2's real shape (layer 0 of the
 Zamba2 prefill: a per-head decay); phase 11 the CUDA-core attention kernel
@@ -76,11 +82,13 @@ import collections
 import concurrent.futures
 import dataclasses
 import functools
+import gc
 import itertools
 import json
 import math
 import os
 import pathlib
+import queue
 import shutil
 import signal
 import subprocess
@@ -717,6 +725,227 @@ def fleet_study(pipeline, counters, timers):
           f"{fl['best']}")
     return {"run_fleet_study, workers": build["morph_recon_launches"],
             "run_fleet_study, leader": leader, "single-process driver": counters[0].value}
+
+
+def service_build() -> dict:
+    """``--build chip_smoke:service_build`` for phase 19's server process:
+    the pathology service build at SIZE², one tile, on the card. When the
+    process exits it prints where it ran, its ``morph_recon`` launches and
+    whether it had to compile the kernel (``build_seconds`` is None when it
+    loaded the library that phase 1 built)."""
+    import atexit
+
+    from repro_torch.app.pipeline import pathology_service_build
+    from repro_torch.kernels import morph_recon
+
+    built = pathology_service_build(size=SIZE, n_tiles=1)
+    dev = built["inputs"][0]["raw"].device
+    lib = morph_recon.build()
+
+    def report():
+        print("service build report: " + json.dumps({
+            "cuda_available": torch.cuda.is_available(),
+            "device": str(dev),
+            "morph_recon_launches": morph_recon.LAUNCHES.value,
+            "build_seconds": lib.seconds,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+        }), flush=True)
+
+    atexit.register(report)
+    return built
+
+
+def plain_floats(result: dict) -> bool:
+    """The job's payload holds Python floats, never a tensor."""
+    return (all(type(v) is float for row in result["per_input"] for v in row)
+            and all(type(v) is float for v in result["objective"]))
+
+
+def service_phase(pipeline, sets, counters):
+    """Phase 19: the study service (``repro_torch.service``) over the
+    pathology build at SIZE², one tile, two thread workers on the card:
+    (a) an explicit job with phase 4's runs gives ``1 - Dice`` of
+    ``run_study`` on the same tile exactly; (b) a solo MOAT job, then two
+    tenants submitting one MOAT spec at once, executed once; (c) a grid job
+    cancelled while running; (d) device memory back within the build, the
+    shared cache and 64 MiB; (e) ``python -m repro_torch.service serve`` as
+    a process answering two TCP tenants with the in-process result.
+    Returns {path: launches}."""
+    from repro_torch.engine.types import DEFAULT_CACHE_BYTES
+    from repro_torch.service import ServiceClient, StudyServer, StudySpec
+
+    metrics = ["objective", "per_input"]
+    tile = pipeline.synthetic_tile(SIZE, SIZE, seed=0)
+    t0 = time.perf_counter()
+    dice = pipeline.run_study(tile, sets)["dice"]
+    print(f"run_study on synthetic_tile({SIZE}, {SIZE}, seed=0), phase 4's {len(sets)} runs: "
+          f"{time.perf_counter() - t0:.3f} s")
+    del tile
+    gc.collect()
+    torch.cuda.empty_cache()
+    for c in counters:
+        c.reset()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    srv = StudyServer.from_build(pipeline.pathology_service_build, {"size": SIZE, "n_tiles": 1},
+                                 n_workers=2)
+    torch.cuda.synchronize()
+    gc.collect()
+    after_build = torch.cuda.memory_allocated()
+    print(f"server built: {time.perf_counter() - t0:.3f} s; memory_allocated after the build "
+          f"{after_build / 2**20:.1f} MiB; cache_bytes {DEFAULT_CACHE_BYTES >> 20} MiB")
+
+    def run(tenant, spec):
+        t = time.perf_counter()
+        snap = srv.result(srv.submit(tenant, spec), wait=True, timeout=900)
+        check(snap["state"] == "DONE", f"{tenant}'s job DONE: {snap['state']} {snap['error']}")
+        return snap, time.perf_counter() - t
+
+    def dispatched():
+        return sum(srv.manager.dispatch_counts.values())
+
+    try:
+        # (a) exact against the library path
+        a, wall = run("lab", StudySpec(sampler="explicit", param_sets=[dict(ps) for ps in sets],
+                                       metrics=metrics))
+        res = a["result"]
+        check(res["per_input"] == [[1 - d] for d in dice],
+              "per_input == 1 - Dice of run_study, run by run (==)")
+        check(plain_floats(res), "the payload holds Python floats only")
+        rec = srv.registry.get(a["job_id"])
+        print(f"(a) explicit job, {res['n_runs']} runs: wall {wall:.3f} s; tasks_executed "
+              f"{res['tasks_executed']}, cache_hits {res['cache_hits']}, cache_misses "
+              f"{res['cache_misses']}; result_bytes {rec.result_bytes}; per_input == 1 - Dice "
+              f"for every run")
+        two = StudySpec(sampler="explicit", param_sets=[dict(sets[0]), dict(sets[5])],
+                        metrics=metrics)
+        two_res, wall = run("lab", two)
+        two_res = two_res["result"]
+        print(f"two-run explicit job (phase (e)'s spec): wall {wall:.3f} s; objective "
+              f"{two_res['objective']}")
+
+        # (b) executes once
+        d0 = dispatched()
+        solo, solo_wall = run("solo", StudySpec(sampler="moat", n_trajectories=1, seed=3))
+        single = dispatched() - d0
+        shared = StudySpec(sampler="moat", n_trajectories=1, seed=11)
+        d1 = dispatched()
+        t = time.perf_counter()
+        ja, jb = srv.submit("alice", shared), srv.submit("bob", shared)
+        ra = srv.result(ja, wait=True, timeout=900)
+        rb = srv.result(jb, wait=True, timeout=900)
+        shared_wall = time.perf_counter() - t
+        combined = dispatched() - d1
+        check(ra["state"] == rb["state"] == "DONE", f"alice {ra['state']}, bob {rb['state']}")
+        check(ra["result"]["objective"] == rb["result"]["objective"], "alice's == bob's objective")
+        check(combined < 2 * single, f"combined {combined} < 2 x single {single}")
+        print(f"(b) solo MOAT job ({solo['result']['n_runs']} runs): wall {solo_wall:.3f} s, "
+              f"single {single} dispatches; alice + bob, one MOAT spec at once: shared wall "
+              f"{shared_wall:.3f} s, combined {combined} dispatches; objectives equal")
+
+        # (c) cancellation
+        sweep = StudySpec(sampler="grid", names=["T1", "G1"],
+                          bounds={"T1": [2.5, 3.0, 3.5, 4.0], "G1": [5, 10, 15, 20]})
+        job = srv.submit("hog", sweep)
+        deadline = time.monotonic() + 120
+        while srv.status(job)["state"] == "QUEUED":
+            check(time.monotonic() < deadline, "the sweep started within 120 s")
+            time.sleep(0.005)
+        t = time.perf_counter()
+        srv.cancel(job)
+        while (srv.status(job)["state"] != "CANCELLED"
+               or srv.manager.scheduler_stats()["tenant_depths"]):
+            check(time.monotonic() < deadline, "the cancel freed the pool within 120 s")
+            time.sleep(0.005)
+        latency = time.perf_counter() - t
+        check(latency < 30.0, f"cancel latency {latency:.3f} s < 30 s")
+        print(f"(c) 4x4 grid job cancelled while running: {latency:.3f} s until CANCELLED and "
+              f"no queued work")
+
+        # (d) device memory returns
+        bound = after_build + DEFAULT_CACHE_BYTES + (64 << 20)
+        states = {j["state"] for j in srv.list_jobs()}
+        check(states <= {"DONE", "CANCELLED"}, f"every job terminal: {states}")
+        t = time.perf_counter()
+        while True:  # a poisoned lease's task runs on to its end, then lets go
+            gc.collect()
+            now = torch.cuda.memory_allocated()
+            if now <= bound or time.perf_counter() - t > 60:
+                break
+            time.sleep(0.5)
+        check(now <= bound, f"memory_allocated {now / 2**20:.1f} MiB <= build + cache + 64 MiB "
+              f"= {bound / 2**20:.1f} MiB")
+        print(f"(d) memory_allocated {now / 2**20:.1f} MiB (bound {bound / 2**20:.1f} MiB) "
+              f"{time.perf_counter() - t:.3f} s after the last job; peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        print(f"server stats: cache {srv.stats()['cache']}; registry {srv.registry.stats()}")
+    finally:
+        srv.close()
+    in_process = counters[0].value
+    print(f"morph_recon launches in process (build and jobs): {in_process}")
+    check(in_process > 0, "the in-process service launched morph_recon")
+
+    # (e) the TCP entry point
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join([str(ROOT / "src"), str(ROOT)])}
+    t = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.service", "serve", "--addr", "127.0.0.1:0",
+         "--workers", "2", "--build", "chip_smoke:service_build"],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines = queue.Queue()
+    reader = threading.Thread(target=lambda: [lines.put(ln) for ln in proc.stdout], daemon=True)
+    reader.start()
+    log = []
+    try:
+        addr = None
+        while addr is None and time.perf_counter() - t < 300:
+            try:
+                ln = lines.get(timeout=1.0)
+            except queue.Empty:
+                if proc.poll() is not None:  # it exited, and the reader has put every line
+                    break
+                continue
+            log.append(ln.rstrip())
+            if ln.startswith("repro_torch.service listening on "):
+                addr = ln.split(" on ", 1)[1].strip()
+        check(addr is not None, "the server printed its address: " + " | ".join(log[-20:]))
+        print(f"(e) server process up in {time.perf_counter() - t:.3f} s at {addr}")
+        t = time.perf_counter()
+        tenants = [ServiceClient(addr, name) for name in ("alice", "bob")]
+        try:
+            jobs = [c.submit(two) for c in tenants]
+            wire = [c.result(j, timeout=900, poll_s=0.05) for c, j in zip(tenants, jobs)]
+        finally:
+            for c in tenants:
+                c.close()
+        wire_wall = time.perf_counter() - t
+        for name, snap in zip(("alice", "bob"), wire):
+            check(snap["state"] == "DONE", f"{name}'s TCP job DONE: {snap['error']}")
+            for key in ("per_input", "objective", "signature"):
+                check(snap["result"][key] == two_res[key], f"{name}'s {key} == in process's")
+            check(plain_floats(snap["result"]), f"{name}'s wire payload holds floats only")
+        print(f"two TCP tenants, the two-run spec: wall {wire_wall:.3f} s; both equal the "
+              f"in-process result")
+        proc.send_signal(signal.SIGINT)
+        rc = proc.wait(timeout=120)
+        reader.join(timeout=10)
+        while not lines.empty():
+            log.append(lines.get().rstrip())
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    check(rc == 0, f"the server exited 0 on SIGINT (exit {rc}): " + " | ".join(log[-20:]))
+    reports = [ln for ln in log if ln.startswith("service build report: ")]
+    check(len(reports) == 1, "the server process printed its build report")
+    report = json.loads(reports[0].split(": ", 1)[1])
+    print(f"server process: {report}; exit {rc} on SIGINT")
+    check(report["cuda_available"] and report["device"].startswith("cuda"),
+          "the server process ran on the card")
+    check(report["morph_recon_launches"] > 0, "the server process launched morph_recon")
+    check(report["build_seconds"] is None, "the server process loaded the built kernel")
+    return {"service, in process": in_process,
+            "service, TCP server process": report["morph_recon_launches"]}
 
 
 def adaptive_study(pipeline, tiles, counters, timers):
@@ -1552,6 +1781,12 @@ def main() -> int:
     phase(f"18 fleet: run_fleet_study(n_procs=2, size={SIZE}, n_tiles=1, max_rounds=2) against "
           f"one in-process StudyDriver")
     recon_launches.update(fleet_study(pipeline, counters, (task_s, task_n, task_lock, task_streams)))
+    torch.cuda.empty_cache()
+
+    # -- 19. the study service -------------------------------------------------
+    phase(f"19 service: StudyServer over pathology_service_build(size={SIZE}, n_tiles=1), two "
+          f"thread workers, and python -m repro_torch.service serve over TCP")
+    recon_launches.update(service_phase(pipeline, sets, counters))
     torch.cuda.empty_cache()
 
     # -- results -----------------------------------------------------------

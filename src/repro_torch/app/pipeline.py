@@ -712,6 +712,34 @@ def pathology_fleet_build(
     }
 
 
+def pathology_service_build(
+    size: int = 48,
+    n_tiles: int = 2,
+    seed: int = 0,
+    space_dict: Optional[Dict[str, list]] = None,
+    costs: Optional[Dict[str, float]] = None,
+    device: Union[None, str, torch.device] = None,
+) -> Dict[str, Any]:
+    """Build mapping for :class:`repro_torch.service.StudyServer` (and the
+    ``python -m repro_torch.service serve --build`` entry): the pathology
+    workflow, tiles, reference masks and Dice objective, deterministic in
+    ``seed`` so a server restart reconstructs byte-identical references.
+    Same shape as :func:`pathology_fleet_build` — the service server IS a
+    resident fleet leader that also evaluates, so it always wants the real
+    objective (no ``leader`` placeholder). ``device`` is as for
+    :func:`pathology_fleet_build`: ``None`` means the card, and raises
+    without CUDA."""
+    return pathology_fleet_build(
+        size=size,
+        n_tiles=n_tiles,
+        seed=seed,
+        space_dict=space_dict,
+        costs=costs,
+        leader=False,
+        device=device,
+    )
+
+
 def run_fleet_study(
     *,
     n_procs: int = 2,

@@ -1402,6 +1402,10 @@ class Manager:
                             with self._cond:
                                 self._unlease_locked(item)
                             break
+            # A parked pump holds no task state: the last completion holds
+            # its outputs and the last lease its input state (tensors on the
+            # card), which a long-lived session would otherwise keep.
+            comps = comp = lease = item = None
             with self._cond:
                 self._pump_busy += time.monotonic() - t_work
                 if (

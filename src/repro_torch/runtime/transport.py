@@ -452,6 +452,11 @@ class ThreadBackend:
             with self._lock:
                 self._inflight[wid].discard(lease.lease_id)
             self._completions.put(comp)
+            # An idle worker holds no task state: the lease's closure holds
+            # its input state and the completion its outputs, tensors on
+            # the card that a long-lived session would otherwise keep until
+            # this worker's next lease.
+            lease = comp = value = None
 
 
 # ---------------------------------------------------------------------------

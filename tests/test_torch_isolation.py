@@ -42,7 +42,12 @@ def test_imports_with_jax_blocked():
         "import repro_torch.kernels.flash_attention, repro_torch.models.attention\n"
         "import repro_torch.study, repro_torch.runtime.objstore\n"
         "import repro_torch.runtime.net, repro_torch.runtime.simulator\n"
+        "import repro_torch.service, repro_torch.service.__main__\n"
+        "from repro_torch.service import StudyServer, StudySpec, ServiceClient\n"
+        "from repro_torch.app import TABLE1_SPACE\n"
+        "StudySpec(sampler='moat', n_trajectories=1).resolve(TABLE1_SPACE)  # the lazy import\n"
         "from repro_torch.app import run_dataset_study, run_adaptive_study, run_fleet_study\n"
+        "from repro_torch.app.pipeline import pathology_service_build\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.')) "
         "for m in sys.modules if sys.modules[m] is not None)\n"
     )
