@@ -67,7 +67,25 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
     explicit job equal to ``1 - Dice`` of ``run_study``, identical
     concurrent submissions executed once, a cancelled job, device memory
     returned, and ``python -m repro_torch.service serve`` answering two TCP
-    tenants.
+    tenants;
+20. the SA-serve study on gemma3_1b at full width and depth (26 layers,
+    head dim 256, 5:1 local:global windows): phase 12's prompts and grid,
+    the JAX planner's counts, every prefill attention on the CUDA-core
+    kernel and none on the tensor cores;
+21. the same study on granite_moe_1b_a400m at full width (32 experts
+    top-8: each 4096-token prefill takes the capacity-bounded MoE branch,
+    whose dropped token slots are printed), attention on the tensor cores,
+    held at layer 0's real q, k and v to its blocked plain version;
+22. ``prefill`` and 16 ``decode_step`` calls on paligemma_3b (256 seeded
+    patch embeddings and 1024 tokens: prefix-LM attention on the CUDA-core
+    kernel, held to ``attention_ref(prefix_len=256)`` at its shape first,
+    with its time, bound and SDPA's with a boolean mask) and on
+    musicgen_medium (4096 seeded frame embeddings, four codebook heads;
+    the tensor-core kernel held at layer 0's real q, k and v as in 21) at
+    full width;
+23. card against CPU on the reduced gemma3_1b, granite_moe_1b_a400m and
+    mixtral_8x7b (serve study and prefill, as phases 9 and 13) and
+    paligemma_3b and musicgen_medium (prefill logits and caches).
 
 Phase 7 also holds ``ssm_scan`` at Mamba2's real shape (layer 0 of the
 Zamba2 prefill: a per-head decay); phase 11 the CUDA-core attention kernel
@@ -444,9 +462,23 @@ def card_vs_cpu(rcfg, sa_serve, init_params, prefill):
     cpu = sa_serve.run_sa_serve(rcfg, cpu_params, rprompts, rsets, **kw)
     for key in ("tasks_total", "tasks_executed", "planned_tasks_executed", "peak_bytes"):
         check(card[key] == cpu[key], f"{key}: card {card[key]} == cpu {cpu[key]}")
-    toks = {"tokens": torch.from_numpy(rprompts[0])}
-    lc, cc, _ = prefill(rcfg, card_params, toks, max_len=20)
-    lp, cp, _ = prefill(rcfg, cpu_params, toks, max_len=20)
+    logit_err, rel = prefill_card_vs_cpu(rcfg, cpu_params, card_params,
+                                         {"tokens": torch.from_numpy(rprompts[0])}, prefill)
+    differ = sum(card["accept_rate"][i] != cpu["accept_rate"][i] for i in range(len(rsets)))
+    print(f"tasks equal ({card['tasks_total']}/{card['tasks_executed']}); prefill logits max abs "
+          f"diff {logit_err}; cache relative diff "
+          + ", ".join(f"{k} {r}" for k, r in rel.items())
+          + f"; accept rates differ in {differ} of {len(rsets)} sets")
+
+
+def prefill_card_vs_cpu(rcfg, cpu_params, card_params, batch, prefill):
+    """Phases 9, 13 and 23: the reduced model's prefill on the card and on
+    the CPU with the same parameters and the CPU ``batch``, logits within
+    0.05 and each cache within 3% relative. Returns (the logits' max abs
+    diff, {cache: relative diff})."""
+    n = sum(v.shape[1] for v in batch.values())
+    lc, cc, _ = prefill(rcfg, card_params, to_device(batch, "cuda:0"), max_len=n + 4)
+    lp, cp, _ = prefill(rcfg, cpu_params, batch, max_len=n + 4)
     logit_err = float((lc.cpu() - lp).abs().max())
     fc, fp = flat(cc), flat(cp)
     rel = {k: float((fc[k].cpu().float() - fp[k].float()).norm() / fp[k].float().norm())
@@ -454,14 +486,248 @@ def card_vs_cpu(rcfg, sa_serve, init_params, prefill):
     # bf16: cuBLAS and the CPU round some products to the other neighbour,
     # and random weights amplify that over the layers (as between the port
     # and the JAX package on the CPU, tests/test_torch_models.py)
-    check(logit_err <= 0.05, f"prefill logits card vs CPU: max abs diff {logit_err} <= 0.05")
+    check(logit_err <= 0.05, f"{rcfg.name} prefill logits card vs CPU: max abs diff {logit_err} "
+          f"<= 0.05")
     for k, r in rel.items():
-        check(r <= 0.03, f"cached {k} card vs CPU: relative difference {r} <= 0.03")
-    differ = sum(card["accept_rate"][i] != cpu["accept_rate"][i] for i in range(len(rsets)))
-    print(f"tasks equal ({card['tasks_total']}/{card['tasks_executed']}); prefill logits max abs "
-          f"diff {logit_err}; cache relative diff "
-          + ", ".join(f"{k} {r}" for k, r in rel.items())
-          + f"; accept rates differ in {differ} of {len(rsets)} sets")
+        check(r <= 0.03, f"{rcfg.name} cached {k} card vs CPU: relative difference {r} <= 0.03")
+    return logit_err, rel
+
+
+def transformer_study(arch, configs, init_params, sa_serve, *, cache_bytes, peak_bytes,
+                      launches, silent):
+    """Phases 20 and 21: the 36-set SA-serve study (``serve_study``) on a
+    transformer at full width and depth, random weights seeded on the card,
+    PROMPTS prompts of Z_PROMPT_LEN tokens. ``launches``: {kernel:
+    (LaunchCount, launches a layer and prefill)}. Returns (cfg, params,
+    prompts, the study's result)."""
+    cfg = configs.get_config(arch)
+    rng = np.random.default_rng(0)
+    prompts = {pid: rng.integers(0, cfg.vocab_size, (1, Z_PROMPT_LEN)).astype(np.int32)
+               for pid in range(PROMPTS)}
+    t0 = time.perf_counter()
+    params = init_params(cfg, 0)
+    torch.cuda.synchronize()
+    ffn = (f"{cfg.num_experts} experts top-{cfg.experts_per_token} of d_ff {cfg.d_ff}"
+           if cfg.num_experts else f"d_ff {cfg.d_ff}")
+    windows = collections.Counter(cfg.layer_windows(Z_PROMPT_LEN))
+    print(f"{arch}: {cfg.num_layers} layers, d_model {cfg.d_model}, {cfg.num_heads} heads of "
+          f"{cfg.head_dim} (kv {cfg.num_kv_heads}), {ffn}, vocab {cfg.vocab_size} (padded "
+          f"{cfg.padded_vocab}); windows at {Z_PROMPT_LEN} tokens {dict(windows)}; "
+          f"{sum(t.numel() for t in flat(params).values())} parameters held (param_count() "
+          f"{cfg.param_count()}), seeded on the card in {time.perf_counter() - t0:.3f} s")
+    out = serve_study(cfg, params, prompts, cache_bytes=cache_bytes,
+                      expected={"tasks_total": 108, "planned_tasks_executed": 51,
+                                "tasks_executed": 51, "reuse_fraction": 57 / 108,
+                                "active_paths": 2, "peak_bytes": peak_bytes},
+                      launches={name: (c, n * cfg.num_layers * PROMPTS)
+                                for name, (c, n) in launches.items()},
+                      silent=silent, sa_serve=sa_serve)
+    return cfg, params, prompts, out
+
+
+def moe_drops(cfg, params, prompts, prefill, moe):
+    """Phase 21: the token slots that each prompt's prefill sends to the
+    sink row, layer by layer (the capacity-bounded branch: t*k > 4096),
+    counted by wrapping ``moe.slots`` for one more prefill of each prompt."""
+    slots, dropped = moe.slots, []
+
+    def counting(gidx, e, cap):
+        slot, keep = slots(gidx, e, cap)
+        dropped.append((~keep).sum())
+        return slot, keep
+
+    t, k, e = Z_PROMPT_LEN, cfg.experts_per_token, cfg.num_experts
+    cap = moe.capacity(t, k, e, cfg.moe_capacity_factor)
+    check(t * k > 4096 and cap == 1280, f"{cfg.name}'s prefill is capacity-bounded: t*k {t * k}, "
+          f"cap {cap} == 1280")
+    moe.slots = counting
+    try:
+        for pid, toks in prompts.items():
+            dropped.clear()
+            prefill(cfg, params, {"tokens": torch.from_numpy(toks).cuda()}, max_len=t + GEN_LEN)
+            per_layer = [int(d) for d in dropped]
+            check(len(per_layer) == cfg.num_layers, "one routing a layer")
+            print(f"prompt {pid}: {sum(per_layer)} of {t * k * cfg.num_layers} token slots dropped "
+                  f"({cap} slots an expert of {e}, top-{k} of {t} tokens); by layer {per_layer}")
+    finally:
+        moe.slots = slots
+
+
+def real_layer0_attention(flash_attention, kref, model_mod, attention_mod, cfg, params, batch):
+    """Phases 21 and 22: layer 0's q, k and v from the model's own
+    ``_attn_qkv`` on a full-width prompt, through ``flash_attention_cuda``
+    as ``blocked_attention`` calls it (q scaled in bf16, scale 1): one
+    tensor-core launch,
+    held to ``flash_attention_blocked`` (its bf16 arithmetic) within one
+    bf16 rounding (rtol 2**-7, atol 1e-4 of the largest |out|); its time,
+    bound and SDPA's time. Returns the numbers."""
+    x, prefix_len = model_mod._embed_inputs(cfg, params, batch)
+    s = x.shape[1]
+    window = cfg.layer_windows(s)[0]
+    check(prefix_len == 0 and window >= s, f"{cfg.name} layer 0: causal, no window, no prefix")
+    positions = torch.arange(s, device=x.device)[None]
+    q, k, v = model_mod._attn_qkv(x, {k: v[0] for k, v in params["layers"].items()}, cfg,
+                                  positions)
+    real = (q * attention_mod._scale(q), k, v)  # as blocked_attention hands them over
+    scale = 1.0
+    before = flash_attention.WGMMA_LAUNCHES.value
+    got = flash_attention.flash_attention_cuda(*real, scale=scale)
+    torch.cuda.synchronize()
+    check(flash_attention.WGMMA_LAUNCHES.value == before + 1,
+          f"{cfg.name} layer 0's attention takes the tensor cores")
+    want = kref.flash_attention_blocked(*real, scale=scale)
+    omax = float(want.float().abs().max())
+    check(torch.allclose(got.float(), want.float(), rtol=2 ** -7, atol=1e-4 * omax),
+          f"{cfg.name} layer 0's attention within one bf16 rounding of the blocked plain version")
+    err = float((got.float() - want.float()).abs().max())
+    ms = cuda_ms(lambda: flash_attention.flash_attention_cuda(*real, scale=scale), 10)
+    sdpa = functools.partial(torch.nn.functional.scaled_dot_product_attention,
+                             *(t.transpose(1, 2) for t in real), is_causal=True, scale=scale,
+                             enable_gqa=True)
+    sdpa_err = float((sdpa().transpose(1, 2).float() - want.float()).abs().max())
+    lib_ms = cuda_ms(sdpa, 10)
+    bound, bound_by, nbytes, flops, _ = attn_bound(*real, got)
+    print(f"{cfg.name} layer 0 attention, real q/k/v " + ", ".join(
+        f"{tuple(t.shape)}" for t in real) + f" bf16, q pre-scaled: max abs err {err} (max |out| "
+          f"{omax}) vs blocked; tensor-core kernel {ms:.4f} ms, library call "
+          f"(scaled_dot_product_attention, is_causal) {lib_ms:.4f} ms (max abs diff {sdpa_err}); "
+          f"bound {bound:.4f} ms ({bound_by}: {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB); "
+          f"{ms / bound:.2f}x bound")
+    return dict(shape=list(real[0].shape), kv_heads=real[1].shape[2], max_abs_err=err,
+                max_abs_out=omax, ms=ms, bound_ms=bound, bound_by=bound_by, library_ms=lib_ms)
+
+
+def kept_pairs(s: int, prefix_len: int) -> int:
+    """(query, key) pairs a causal prefix-LM mask keeps over Sq == Sk: each
+    query sees the prefix and every key up to its own position."""
+    return sum(max(i + 1, min(prefix_len, s)) for i in range(s))
+
+
+def prefix_attention(flash_attention, kref, pcfg, s):
+    """Phase 22: the prefix-LM mode of the CUDA-core kernel at PaliGemma's
+    prefill shape, (1, s, 8, 256) with one kv head and its 256-patch
+    prefix: fp32 within 2e-5 of ``attention_ref(prefix_len=...)``, bf16
+    within one bf16 rounding of ``flash_attention_blocked`` (its fp32
+    arithmetic at D = 256); times, bounds (fp32: the fp32 rate; bf16: the
+    bf16 tensor rate, against the bytes) and SDPA's time with the same mask
+    as an explicit boolean tensor. Returns the numbers."""
+    h, kv, d, pre = pcfg.num_heads, pcfg.num_kv_heads, pcfg.head_dim, pcfg.num_patches
+    q, k, v = qkv_case(1, s, s, h, kv, d, seed=pre)
+    before, wgmma = flash_attention.LAUNCHES.value, flash_attention.WGMMA_LAUNCHES.value
+    got = flash_attention.flash_attention_cuda(q, k, v, prefix_len=pre)
+    qb, kb, vb = (t.bfloat16() for t in (q, k, v))
+    got_b = flash_attention.flash_attention_cuda(qb, kb, vb, prefix_len=pre)
+    torch.cuda.synchronize()
+    check(flash_attention.LAUNCHES.value == before + 2
+          and flash_attention.WGMMA_LAUNCHES.value == wgmma,
+          "prefix-LM attention: two CUDA-core launches (fp32, bf16), none on the tensor cores")
+    want = kref.attention_ref(q, k, v, prefix_len=pre)
+    check(torch.allclose(got, want, rtol=2e-5, atol=2e-5),
+          f"prefix-LM fp32 within 2e-5 of attention_ref(prefix_len={pre})")
+    err = float((got - want).abs().max())
+    causal_gap = float((got - kref.attention_ref(q, k, v)).abs().max())
+    check(causal_gap > 1e-3, "the prefix changes the result (not plain causal)")
+    want_b = kref.flash_attention_blocked(qb, kb, vb, prefix_len=pre)  # fp32 arithmetic at D = 256
+    check(torch.allclose(got_b.float(), want_b.float(), rtol=2 ** -7, atol=2 ** -9),
+          "prefix-LM bf16 within one bf16 rounding of flash_attention_blocked")
+    err_b = float((got_b.float() - want_b.float()).abs().max())
+    del want, want_b
+    ms = cuda_ms(lambda: flash_attention.flash_attention_cuda(q, k, v, prefix_len=pre), 10)
+    ms_b = cuda_ms(lambda: flash_attention.flash_attention_cuda(qb, kb, vb, prefix_len=pre), 10)
+    plain_ms = cuda_ms(lambda: kref.flash_attention_blocked(qb, kb, vb, prefix_len=pre), 2)
+    pairs = kept_pairs(s, pre) * h
+    flops = 4 * d * pairs
+    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, got))
+    bound = max(nbytes / HBM_BYTES_PER_S, flops / FP32_OPS_PER_S) * 1e3
+    bound_b = max(nbytes / 2 / HBM_BYTES_PER_S, flops / BF16_OPS_PER_S) * 1e3
+    i = torch.arange(s, device=q.device)
+    keep = (i[None, :] <= i[:, None]) | (i[None, :] < pre)
+    lib = {}
+    for name, (a, b, c), out in (("fp32", (q, k, v), got), ("bf16", (qb, kb, vb), got_b)):
+        sdpa = functools.partial(torch.nn.functional.scaled_dot_product_attention,
+                                 *(t.transpose(1, 2) for t in (a, b, c)), attn_mask=keep,
+                                 enable_gqa=True)
+        diff = float((sdpa().transpose(1, 2).float() - out.float()).abs().max())
+        lib[name] = (cuda_ms(sdpa, 10), diff)
+    print(f"paligemma_3b prefill attention (1, {s}, {h}, {d}) kv {kv}, prefix {pre}: fp32 max abs "
+          f"err {err:.3g} vs attention_ref (plain causal would differ by {causal_gap:.3g}), bf16 "
+          f"{err_b:.3g} vs blocked; kernel fp32 {ms:.4f} ms, bf16 {ms_b:.4f} ms; plain (blocked, "
+          f"bf16) {plain_ms:.4f} ms; bound fp32 {bound:.4f} ms, bf16 {bound_b:.4f} ms (operations: "
+          f"{flops / 1e9:.2f} GFLOP over {pairs} kept pairs, {nbytes / 1e6:.1f} MB in fp32); library "
+          f"call (scaled_dot_product_attention, boolean mask) fp32 {lib['fp32'][0]:.4f} ms (max abs "
+          f"diff {lib['fp32'][1]:.3g}), bf16 {lib['bf16'][0]:.4f} ms (max abs diff "
+          f"{lib['bf16'][1]:.3g}); fp32 {ms / bound:.1f}x bound")
+    return dict(ms=ms, bf16_ms=ms_b, plain_ms=plain_ms, bound_ms=bound, bf16_bound_ms=bound_b,
+                library_ms=lib["fp32"][0], bf16_library_ms=lib["bf16"][0], max_abs_err=err,
+                max_abs_err_bf16=err_b)
+
+
+def lm_prefill_decode(cfg, params, batch, prefill, decode_step, *, launches, silent, seed):
+    """Phase 22: one full-width prefill and GEN_LEN decode steps, each
+    timed between syncs. ``launches``: {kernel: (LaunchCount, launches the
+    prefill must make)}, counted from 0 just before it; ``silent``: counts
+    that stay 0. Decoding is plain PyTorch (no kernel launch). Tokens are
+    the greedy ones; audio's frame embeddings are seeded. Returns {path:
+    launches}."""
+    n = sum(v.shape[1] for v in batch.values())
+    heads = cfg.num_codebooks if cfg.family == "audio" else 1
+    for counter in [c for c, _ in launches.values()] + list(silent.values()):
+        counter.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits, cache, ln = prefill(cfg, params, batch, max_len=n + GEN_LEN)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    counts = {name: c.value for name, (c, _) in launches.items()}
+    for name, (_, want) in launches.items():
+        check(counts[name] == want, f"{cfg.name} prefill: {name} launches {counts[name]} == {want}")
+    for name, counter in silent.items():
+        check(counter.value == 0, f"{cfg.name} prefill: no {name} launch")
+    check(ln == n and tuple(logits.shape) == (1, heads * cfg.padded_vocab)
+          and bool(torch.isfinite(logits).all()), f"{cfg.name} prefill: finite (1, {heads} x "
+          f"{cfg.padded_vocab}) logits over {n} positions")
+    kv_shape = (cfg.num_layers, 1, n + GEN_LEN, cfg.num_kv_heads, cfg.head_dim)
+    check(all(tuple(t.shape) == kv_shape and t.dtype == torch.bfloat16 for t in cache.values()),
+          f"{cfg.name} cache {kv_shape} bf16")
+    kept = {k: v.clone() for k, v in cache.items()}
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    step_s, cur = [], cache
+    for i in range(GEN_LEN):
+        if cfg.family == "audio":
+            step = {"frame_embeds": torch.randn(1, 1, cfg.d_model, generator=gen, device="cuda")}
+        else:
+            step = {"tokens": logits.argmax(-1)[:, None]}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cur = decode_step(cfg, params, step, cur, n + i)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        check(bool(torch.isfinite(logits).all()) and logits.shape[-1] == heads * cfg.padded_vocab,
+              f"{cfg.name} decode step {i}: finite logits")
+    check(all(torch.equal(cache[k], kept[k]) for k in cache), "decode_step kept the prefill's cache")
+    check(all(c.value == counts[name] for name, (c, _) in launches.items())
+          and all(c.value == 0 for c in silent.values()), "decode launched no attention kernel")
+    print(f"{cfg.name}: prefill of {n} positions {prefill_s:.4f} s; {GEN_LEN} decode steps "
+          f"{sum(step_s):.4f} s (mean {1e3 * sum(step_s) / GEN_LEN:.2f} ms, first "
+          f"{1e3 * step_s[0]:.2f} ms, last {1e3 * step_s[-1]:.2f} ms); launches in the prefill "
+          + ", ".join(f"{k} {v}" for k, v in counts.items())
+          + f"; max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    return counts
+
+
+def lm_batch(cfg, s_text, seed, device):
+    """A seeded prompt: tokens, vlm's patch embeddings before them, or
+    audio's frame embeddings."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    if cfg.family == "audio":
+        return {"frame_embeds": torch.randn(1, s_text, cfg.d_model, generator=gen, device=device)}
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, s_text), generator=gen,
+                                     device=device)}
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.randn(1, cfg.num_patches, cfg.d_model, generator=gen,
+                                            device=device)
+    return batch
 
 
 def two_streams(morph_recon, mk, ms, reps):
@@ -1287,8 +1553,9 @@ def main() -> int:
     from repro_torch.core import halton_sequence, morris_trajectories, sa_serve
     from repro_torch.kernels import flash_attention, morph_recon, nvcc, ssm_scan
     from repro_torch.kernels import ref as kref
-    from repro_torch.models import init_params, prefill
-    from repro_torch.models import model as model_mod, ssm as ssm_mod
+    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.models import attention as attention_mod, model as model_mod, moe as moe_mod
+    from repro_torch.models import ssm as ssm_mod
     from repro_torch.models.layers import rms_norm
 
     # -- 1. device --------------------------------------------------------
@@ -1731,7 +1998,6 @@ def main() -> int:
                               "flash_attention": flash_attention.LAUNCHES}, sa_serve=sa_serve)
     launches["zamba2_serve"] = out["launches"]["ssm_scan"]
     fa_launches = out["launches"]["flash_attention_wgmma"]
-    simt_launches = flash_attention.LAUNCHES.value  # checked 0 in the study
     del zparams
     torch.cuda.empty_cache()
 
@@ -1789,6 +2055,85 @@ def main() -> int:
     recon_launches.update(service_phase(pipeline, sets, counters))
     torch.cuda.empty_cache()
 
+    # -- 20. the SA-serve study on gemma3_1b at full width ----------------------
+    attn = {"flash_attention": flash_attention.LAUNCHES,
+            "flash_attention_wgmma": flash_attention.WGMMA_LAUNCHES}
+    others = {"morph_recon": morph_recon.LAUNCHES, "ssm_scan": ssm_scan.LAUNCHES}
+    phase("20 SA-serve study: run_sa_serve on gemma3_1b at full width (head dim 256: attention "
+          "on the CUDA cores)")
+    gcfg, gparams, _, out = transformer_study(
+        "gemma3_1b", configs, init_params, sa_serve, cache_bytes=109_477_888,
+        peak_bytes=246_325_376, launches={"flash_attention": (attn["flash_attention"], 1)},
+        silent={"flash_attention_wgmma": attn["flash_attention_wgmma"], **others})
+    simt_by_path = {"gemma3_serve": out["launches"]["flash_attention"]}
+    del gparams
+    torch.cuda.empty_cache()
+
+    # -- 21. the SA-serve study on granite_moe_1b_a400m at full width -----------
+    phase("21 SA-serve study: run_sa_serve on granite_moe_1b_a400m at full width (32 experts "
+          "top-8; attention on the tensor cores)")
+    mcfg, mparams, mprompts, out = transformer_study(
+        "granite_moe_1b_a400m", configs, init_params, sa_serve, cache_bytes=202_113_024,
+        peak_bytes=454_754_432,
+        launches={"flash_attention_wgmma": (attn["flash_attention_wgmma"], 1)},
+        silent={"flash_attention": attn["flash_attention"], **others})
+    wgmma_by_path = {"zamba2_serve": fa_launches,
+                     "granite_moe_serve": out["launches"]["flash_attention_wgmma"]}
+    moe_drops(mcfg, mparams, mprompts, prefill, moe_mod)
+    wgmma_real = {"granite_moe_1b_a400m": real_layer0_attention(
+        flash_attention, kref, model_mod, attention_mod, mcfg, mparams,
+        {"tokens": torch.from_numpy(mprompts[0]).cuda()})}
+    del mparams
+    torch.cuda.empty_cache()
+
+    # -- 22. paligemma_3b and musicgen_medium at full width ---------------------
+    pcfg = configs.get_config("paligemma_3b")
+    p_text = 1024
+    phase(f"22 prefill and {GEN_LEN} decode steps: paligemma_3b ({pcfg.num_patches} patches + "
+          f"{p_text} tokens, prefix-LM attention on the CUDA cores) and musicgen_medium "
+          f"({Z_PROMPT_LEN} frames, attention on the tensor cores) at full width")
+    d256_prefix = prefix_attention(flash_attention, kref, pcfg, pcfg.num_patches + p_text)
+    torch.cuda.empty_cache()
+    for arch, s_text, kernel in (("paligemma_3b", p_text, "flash_attention"),
+                                 ("musicgen_medium", Z_PROMPT_LEN, "flash_attention_wgmma")):
+        cfg = configs.get_config(arch)
+        t0 = time.perf_counter()
+        params = init_params(cfg, 0)
+        torch.cuda.synchronize()
+        print(f"{arch} ({cfg.family}): {cfg.num_layers} layers, d_model {cfg.d_model}, "
+              f"{cfg.num_heads} heads of {cfg.head_dim} (kv {cfg.num_kv_heads}), d_ff {cfg.d_ff}, "
+              f"vocab {cfg.vocab_size}" + (f" x {cfg.num_codebooks} codebooks" if
+                                           cfg.num_codebooks else "")
+              + f"; {sum(t.numel() for t in flat(params).values())} parameters held, seeded on "
+              f"the card in {time.perf_counter() - t0:.3f} s")
+        batch = lm_batch(cfg, s_text, seed=0, device="cuda")
+        counts = lm_prefill_decode(
+            cfg, params, batch, prefill, decode_step,
+            launches={kernel: (attn[kernel], cfg.num_layers)},
+            silent={**{k: c for k, c in attn.items() if k != kernel}, **others}, seed=1)
+        (simt_by_path if kernel == "flash_attention" else wgmma_by_path)[arch] = counts[kernel]
+        if kernel == "flash_attention_wgmma":
+            wgmma_real[arch] = real_layer0_attention(flash_attention, kref, model_mod,
+                                                     attention_mod, cfg, params, batch)
+        del params
+        torch.cuda.empty_cache()
+
+    # -- 23. card vs CPU on the reduced transformers ------------------------------
+    phase("23 card vs CPU: the reduced gemma3_1b, granite_moe_1b_a400m, mixtral_8x7b (serve "
+          "study and prefill), paligemma_3b and musicgen_medium (prefill)")
+    for arch in ("gemma3_1b", "granite_moe_1b_a400m", "mixtral_8x7b"):
+        card_vs_cpu(configs.reduced_config(configs.get_config(arch)), sa_serve, init_params,
+                    prefill)
+    for arch in ("paligemma_3b", "musicgen_medium"):
+        rcfg = configs.reduced_config(configs.get_config(arch))
+        cpu_params = init_params(rcfg, 0, device="cpu")
+        batch = lm_batch(rcfg, 16, seed=1, device="cpu")
+        logit_err, rel = prefill_card_vs_cpu(rcfg, cpu_params, to_device(cpu_params, "cuda:0"),
+                                             batch, prefill)
+        print(f"{rcfg.name} (reduced, {rcfg.family}): prefill of "
+              f"{sum(v.shape[1] for v in batch.values())} positions; logits max abs diff "
+              f"{logit_err}; cache relative diff " + ", ".join(f"{k} {r}" for k, r in rel.items()))
+
     # -- results -----------------------------------------------------------
     ms_k, ms_p, bound = timing[(f"seg2 {SIZE}x{SIZE}", int(default["RC"]))][:3]
     print(json.dumps({"kernels": [{
@@ -1831,19 +2176,22 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
         "replaces": "src/repro/kernels/flash_attention.py:27",
-        "launches": fa_launches,
+        "launches": sum(wgmma_by_path.values()),
+        "launches_by_path": wgmma_by_path,
         "max_abs_err": fa_bf16_err,
         "ms": fa_ms,
         "plain_ms": fa_plain_ms,
         "bound_ms": fa_bound_ms,
         "bound_by": fa_bound_by,
         "library_ms": fa_lib_ms,
+        "layer0_by_model": wgmma_real,
     }, {
         "name": "flash_attention",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:27",
-        "launches": simt_launches,
+        "launches": sum(simt_by_path.values()),
+        "launches_by_path": simt_by_path,
         "max_abs_err": fa_err,
         "max_abs_err_bf16": fa_err_bf16_simt,
         "ms": simt_ms,
@@ -1852,6 +2200,7 @@ def main() -> int:
         "bound_by": fa_bound_by,
         "library_ms": fa_lib_ms,
         "gemma3_d256": d256,
+        "paligemma_prefix": d256_prefix,
     }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,4 @@
-// Causal, sliding-window, grouped-query attention forward pass
+// Causal, sliding-window, prefix-LM, grouped-query attention forward pass
 // (FlashAttention-2's streaming softmax) for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel of src/repro/kernels/flash_attention.py:
@@ -8,8 +8,11 @@
 // bf16, read in place by strides, with query head h reading kv head
 // h / (H/KV):
 //   s[i,j] = (q_i · scale) · k_j in fp32, scale = 1/sqrt(D),
-//   kept where j < Sk, j <= qpos_i when causal, and j > qpos_i − window
-//   with a window, qpos_i = i + q_offset; -1e30 elsewhere;
+//   kept where j < Sk, j <= qpos_i or j < prefix_len when causal, and
+//   j > qpos_i − window with a window, qpos_i = i + q_offset; -1e30
+//   elsewhere (the keys of a prefix of prefix_len positions are seen by
+//   every query, as PaliGemma's prefix-LM mask: src/repro/models/
+//   attention.py, blocked_attention);
 //   out_i  = Σ_j exp(s[i,j] − m_i) v_j / max(Σ_j exp(s[i,j] − m_i), 1e-30)
 // with the running max m, sum and accumulator in fp32, written in q's type
 // to a contiguous (B,Sq,H,D) output. A key tile that is wholly masked for
@@ -32,7 +35,9 @@
 // arithmetic is IEEE fp32 on the CUDA cores (no TF32), so fp32 inputs agree
 // with the dense oracle to 2e-5. Shared memory is (3·64·(D|1) + 64·65)·4
 // bytes, 78,848 at D = 80: dynamic, above the 48 KB static limit, so two
-// blocks fit an SM. D goes up to 256 (gemma3's and PaliGemma's head dim):
+// blocks fit an SM. In the prefix mode every block also visits the tiles
+// that start inside the prefix, past its causal exit. D goes up to 256
+// (gemma3's and PaliGemma's head dim):
 // 16 output columns a thread, 214,016 bytes of shared memory, one block an
 // SM, under the 232,448-byte opt-in. ptxas (-Xptxas -v, for sm_90a)
 // gives the 16-column instances 128 registers a thread and no spill; the
@@ -87,7 +92,8 @@ template <typename T, int DPT>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  T* __restrict__ out, int Sq, int Sk, int H, int KV, int D, int causal,
-                 int has_window, int window, int q_offset, float scale, Strides st) {
+                 int has_window, int window, int q_offset, int prefix_len, float scale,
+                 Strides st) {
   extern __shared__ float smem[];
   const int ld = D | 1;
   float* Qs = smem;          // (BQ, ld): q · scale
@@ -122,7 +128,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   // the TPU kernel's tile test, over the block's padded rows
   const int a_lo = row0 + q_offset, a_hi = a_lo + BQ - 1;
   for (int k_lo = 0; k_lo < Sk; k_lo += BK) {
-    if (causal && k_lo > a_hi) break;  // and every later tile
+    if (causal && k_lo > a_hi && k_lo >= prefix_len) break;  // and every later tile
     if (has_window && k_lo + BK <= a_lo - window + 1) continue;
     __syncthreads();  // Qs written; the previous tile's readers done
     for (int e = tid; e < BK * D; e += THREADS) {
@@ -162,7 +168,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int kpos = k_lo + tx + 16 * c;
-        keep[c] = kpos < Sk && (!causal || kpos <= qpos) && (!has_window || kpos > qpos - window);
+        keep[c] = kpos < Sk && (!causal || kpos <= qpos || kpos < prefix_len) &&
+                  (!has_window || kpos > qpos - window);
         if (!keep[c]) s[i][c] = NEG;
         mx = fmaxf(mx, s[i][c]);
       }
@@ -220,8 +227,8 @@ size_t smem_bytes(int D) {
 
 template <typename T, int DPT>
 int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Sk, int H,
-           int KV, int D, int causal, int has_window, int window, int q_offset, float scale,
-           const Strides& st, cudaStream_t stream) {
+           int KV, int D, int causal, int has_window, int window, int q_offset, int prefix_len,
+           float scale, const Strides& st, cudaStream_t stream) {
   const size_t smem = smem_bytes(D);
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, DPT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -235,19 +242,20 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
   flash_fwd_kernel<T, DPT><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), Sq, Sk, H, KV, D, causal, has_window, window, q_offset, scale, st);
+      static_cast<T*>(out), Sq, Sk, H, KV, D, causal, has_window, window, q_offset, prefix_len,
+      scale, st);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int dispatch(int dpt, const void* q, const void* k, const void* v, void* out, int B, int Sq,
              int Sk, int H, int KV, int D, int causal, int has_window, int window, int q_offset,
-             float scale, const Strides& st, cudaStream_t s) {
+             int prefix_len, float scale, const Strides& st, cudaStream_t s) {
   switch (dpt) {
 #define FA_CASE(N) \
   case N:          \
     return launch<T, N>(q, k, v, out, B, Sq, Sk, H, KV, D, causal, has_window, window, \
-                        q_offset, scale, st, s);
+                        q_offset, prefix_len, scale, st, s);
     FA_CASE(1) FA_CASE(2) FA_CASE(3) FA_CASE(4) FA_CASE(5) FA_CASE(6) FA_CASE(7) FA_CASE(8)
     FA_CASE(9) FA_CASE(10) FA_CASE(11) FA_CASE(12) FA_CASE(13) FA_CASE(14) FA_CASE(15)
     FA_CASE(16)
@@ -262,14 +270,16 @@ int dispatch(int dpt, const void* q, const void* k, const void* v, void* out, in
 // q, k, v and out are fp32 when `bf16` is 0 and bf16 when it is 1;
 // `strides` (host memory) holds the 12 element strides of q, k and v, four
 // each; out (B,Sq,H,D) is contiguous. `window` is read when `has_window` is
-// 1; `scale` is 1/sqrt(D), rounded to fp32 by the caller. Returns a
+// 1; `prefix_len` (0: none) widens the causal mask to the prefix's keys;
+// `scale` is 1/sqrt(D), rounded to fp32 by the caller. Returns a
 // cudaError_t.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* out,
                                    int bf16, int B, int Sq, int Sk, int H, int KV, int D,
                                    int causal, int has_window, int window, int q_offset,
-                                   float scale, const long long* strides, void* stream) {
+                                   int prefix_len, float scale, const long long* strides,
+                                   void* stream) {
   if (B < 1 || Sq < 1 || Sk < 1 || H < 1 || KV < 1 || H % KV != 0 || D < 1 ||
-      D > 16 * MAX_DPT)
+      D > 16 * MAX_DPT || prefix_len < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   Strides st;
   for (int d = 0; d < 4; ++d) {
@@ -281,9 +291,9 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
     return dispatch<__nv_bfloat16>(dpt, q, k, v, out, B, Sq, Sk, H, KV, D, causal, has_window,
-                                   window, q_offset, scale, st, s);
+                                   window, q_offset, prefix_len, scale, st, s);
   return dispatch<float>(dpt, q, k, v, out, B, Sq, Sk, H, KV, D, causal, has_window, window,
-                         q_offset, scale, st, s);
+                         q_offset, prefix_len, scale, st, s);
 }
 
 // The dynamic shared memory a block takes at head dim D, in bytes.

@@ -1,16 +1,17 @@
-"""Causal, sliding-window, grouped-query attention (FlashAttention's
-forward pass): the two hand-written CUDA kernels for Hopper, their builds,
-launch counts and wrappers.
+"""Causal, sliding-window, prefix-LM, grouped-query attention
+(FlashAttention's forward pass): the two hand-written CUDA kernels for
+Hopper, their builds, launch counts and wrappers.
 
 - ``csrc/flash_attention_wgmma.cu``, the tensor-core kernel (``wgmma`` fed
   by TMA), takes bf16 inputs with a head dim that is a multiple of 16 and at
   most 128 (:func:`flash_attention_wgmma`);
 - ``csrc/flash_attention.cu``, the CUDA-core kernel in IEEE fp32, takes
   everything else: fp32 inputs, whose reference bar of 2e-5 only fp32
-  products meet, and bf16 with any other head dim
-  (:func:`flash_attention_simt`).
+  products meet, bf16 with any other head dim, and every prefix-LM call
+  (``prefix_len > 0``, PaliGemma's bidirectional image prefix), whatever the
+  dtype and head dim (:func:`flash_attention_simt`).
 
-:func:`flash_attention_cuda` chooses between them by
+:func:`flash_attention_cuda` chooses between them by ``prefix_len`` and
 :func:`uses_tensor_cores` (dtype and head dim); it is a dispatch, not a
 fallback. The kernels replace the Pallas TPU kernel of
 ``repro.kernels.flash_attention`` (``_fa_kernel``, ``flash_attention_pallas``);
@@ -105,7 +106,7 @@ def build() -> Build:
     built = nvcc.build_library("flash_attention")
     fn = built.lib.flash_attention_fwd
     fn.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_float]
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 + [ctypes.c_float]
         + [ctypes.c_void_p, ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
@@ -138,23 +139,30 @@ WGMMA_LAUNCHES = LaunchCount()  # the tensor-core kernel
 def flash_attention_cuda(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     causal: bool = True, window: Optional[int] = None, q_offset: int = 0,
+    prefix_len: int = 0, scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Attention on the card: the tensor-core kernel where
-    :func:`uses_tensor_cores` holds (bf16, D a multiple of 16 up to 128),
-    the CUDA-core kernel otherwise.
+    :func:`uses_tensor_cores` holds (bf16, D a multiple of 16 up to 128)
+    and there is no prefix, the CUDA-core kernel otherwise.
 
     q (B, Sq, H, D) and k, v (B, Sk, KV, D) in one dtype, float32 or
     bfloat16, on one CUDA device, with H a multiple of KV and D at most 256.
-    ``q_offset`` is the absolute position of q's first row. Returns
-    (B, Sq, H, D) in q's dtype. Launches once on the current stream and does
-    not synchronise.
+    ``q_offset`` is the absolute position of q's first row; with
+    ``prefix_len`` > 0 a causal mask also keeps the keys before
+    ``prefix_len`` for every query (prefix-LM), which only the CUDA-core
+    kernel computes. The logits are scaled by ``scale``, 1/sqrt(D) when it
+    is None. Returns (B, Sq, H, D) in q's dtype. Launches once on the
+    current stream and does not synchronise.
     """
-    _check(q, k, v)
-    kernel = flash_attention_wgmma if uses_tensor_cores(q.dtype, q.shape[3]) else flash_attention_simt
-    return kernel(q, k, v, causal=causal, window=window, q_offset=q_offset)
+    _check(q, k, v, prefix_len)
+    if prefix_len or not uses_tensor_cores(q.dtype, q.shape[3]):
+        return flash_attention_simt(q, k, v, causal=causal, window=window, q_offset=q_offset,
+                                    prefix_len=prefix_len, scale=scale)
+    return flash_attention_wgmma(q, k, v, causal=causal, window=window, q_offset=q_offset,
+                                 scale=scale)
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, prefix_len: int = 0) -> None:
     dev = q.device
     if dev.type != "cuda" or k.device != dev or v.device != dev:
         raise ValueError(
@@ -177,16 +185,23 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
             f"need non-empty shapes, H a multiple of KV and D <= {MAX_HEAD_DIM}: "
             f"q {tuple(q.shape)}, k {tuple(k.shape)}"
         )
+    if prefix_len < 0:
+        raise ValueError(f"prefix_len {prefix_len} < 0")
+
+
+def _scale_or_default(scale: Optional[float], d: int) -> float:
+    return 1.0 / math.sqrt(d) if scale is None else float(scale)
 
 
 def flash_attention_simt(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     causal: bool = True, window: Optional[int] = None, q_offset: int = 0,
+    prefix_len: int = 0, scale: Optional[float] = None,
 ) -> torch.Tensor:
     """The CUDA-core kernel, ``csrc/flash_attention.cu``: any strides, fp32
-    or bf16, D at most 256. The kernel fixes its own 64×64 tiles; the result
-    does not depend on them."""
-    _check(q, k, v)
+    or bf16, D at most 256, with or without a prefix. The kernel fixes its
+    own 64×64 tiles; the result does not depend on them."""
+    _check(q, k, v, prefix_len)
     bsz, sq, h, d = q.shape
     sk, kv = k.shape[1], k.shape[2]
     dev = q.device
@@ -197,7 +212,8 @@ def flash_attention_simt(
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             int(q.dtype == torch.bfloat16), bsz, sq, sk, h, kv, d, int(bool(causal)),
-            int(window is not None), int(window or 0), int(q_offset), 1.0 / math.sqrt(d),
+            int(window is not None), int(window or 0), int(q_offset), int(prefix_len),
+            _scale_or_default(scale, d),
             ctypes.addressof(strides), torch.cuda.current_stream().cuda_stream,
         )
         if err != 0:
@@ -209,13 +225,17 @@ def flash_attention_simt(
 def flash_attention_wgmma(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     causal: bool = True, window: Optional[int] = None, q_offset: int = 0,
+    prefix_len: int = 0, scale: Optional[float] = None,
 ) -> torch.Tensor:
     """The tensor-core kernel, ``csrc/flash_attention_wgmma.cu``: bf16 with
-    D a multiple of 16 up to 128, laid out for TMA (:func:`tma_layout_error`).
-    Raises on anything else; it makes no copy. Its arithmetic is
-    :func:`flash_attention_blocked`'s for such inputs: probabilities rounded
-    to bf16 before the P·V product."""
-    _check(q, k, v)
+    D a multiple of 16 up to 128, laid out for TMA (:func:`tma_layout_error`),
+    without a prefix. Raises on anything else; it makes no copy. Its
+    arithmetic is :func:`flash_attention_blocked`'s for such inputs:
+    probabilities rounded to bf16 before the P·V product."""
+    _check(q, k, v, prefix_len)
+    if prefix_len:
+        raise ValueError(f"the tensor-core kernel has no prefix-LM mask (prefix_len "
+                         f"{prefix_len}); flash_attention_simt computes it")
     bsz, sq, h, d = q.shape
     sk, kv = k.shape[1], k.shape[2]
     if not uses_tensor_cores(q.dtype, d):
@@ -233,7 +253,7 @@ def flash_attention_wgmma(
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             bsz, sq, sk, h, kv, d, int(bool(causal)), int(window is not None), int(window or 0),
-            int(q_offset), 1.0 / math.sqrt(d), ctypes.addressof(strides),
+            int(q_offset), _scale_or_default(scale, d), ctypes.addressof(strides),
             torch.cuda.current_stream().cuda_stream,
         )
         if err == -1:

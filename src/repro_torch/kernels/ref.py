@@ -459,12 +459,14 @@ _NEG = -1e30  # the masked logit of the TPU kernel
 def attention_ref(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     causal: bool = True, window: Optional[int] = None, scale: Optional[float] = None,
+    prefix_len: int = 0,
 ) -> torch.Tensor:
     """Dense attention, the oracle. q (B, Sq, H, D); k, v (B, Sk, KV, D)
     with H a multiple of KV (query head h reads kv head h // (H/KV)).
-    Queries sit at the end of the keys (``qpos = i + Sk - Sq``); ``window``
-    keeps keys in [qpos - window + 1, qpos]. Masked logits are -inf and a
-    row with no key left is 0. Returns q's dtype."""
+    Queries sit at the end of the keys (``qpos = i + Sk - Sq``); the causal
+    mask keeps ``kpos <= qpos`` and, for a prefix-LM, every ``kpos <
+    prefix_len``; ``window`` keeps keys in [qpos - window + 1, ...]. Masked
+    logits are -inf and a row with no key left is 0. Returns q's dtype."""
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     rep = h // hkv
@@ -477,7 +479,7 @@ def attention_ref(
     kpos = torch.arange(sk, device=q.device)[None, :]
     m = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
     if causal:
-        m &= kpos <= qpos
+        m &= (kpos <= qpos) | (kpos < prefix_len)
     if window is not None:
         m &= kpos > qpos - window
     logits = logits.masked_fill(~m, float("-inf"))
@@ -496,14 +498,16 @@ def uses_tensor_cores(dtype: torch.dtype, d: int) -> bool:
 def flash_attention_blocked(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     causal: bool = True, window: Optional[int] = None, q_offset: int = 0,
-    block_q: int = 128, block_k: int = 128,
+    prefix_len: int = 0, scale: Optional[float] = None, block_q: int = 128, block_k: int = 128,
 ) -> torch.Tensor:
     """The TPU kernel's arithmetic, block by block: fp32 logits of
-    ``q·scale`` and k, masked to -1e30 (``kpos < Sk``; ``kpos <= qpos`` when
-    causal; ``kpos > qpos - window`` with a window; ``qpos = i + q_offset``),
+    ``q·scale`` (1/sqrt(D) when ``scale`` is None) and k, masked to -1e30 (``kpos < Sk``; ``kpos <= qpos`` or
+    ``kpos < prefix_len`` when causal; ``kpos > qpos - window`` with a
+    window; ``qpos = i + q_offset``),
     a streaming softmax with fp32 running max, sum and accumulator, and
     ``acc / max(l, 1e-30)`` in q's dtype. A (q-block, k-block) pair that is
-    wholly masked is skipped on the TPU kernel's test.
+    wholly masked is skipped on the TPU kernel's test (a key block that
+    starts inside the prefix is never skipped for being causal).
 
     A masked logit adds 0 to the sum: that is what ``exp(-1e30 - m)`` gives
     as soon as the row has one key, and it makes a row with no key 0, as
@@ -522,7 +526,7 @@ def flash_attention_blocked(
     sk, kv = k.shape[1], k.shape[2]
     rep = h // kv
     bq, bk = min(block_q, sq), min(block_k, sk)
-    scale = 1.0 / math.sqrt(d)
+    scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
     tensor_cores = uses_tensor_cores(q.dtype, d)
     qf = q.float().transpose(1, 2)  # (B, H, Sq, D)
     if not tensor_cores:
@@ -540,14 +544,14 @@ def flash_attention_blocked(
         # the TPU kernel's test, with its padded block's last row
         a_lo, a_hi = q_lo + q_offset, q_lo + q_offset + bq - 1
         for k_lo in range(0, sk, bk):
-            if causal and k_lo > a_hi:
+            if causal and k_lo > a_hi and k_lo >= prefix_len:
                 continue
             if window is not None and k_lo + bk <= a_lo - window + 1:
                 continue
             kpos = torch.arange(k_lo, min(k_lo + bk, sk), device=q.device)[None, :]
             mask = torch.ones((len(rows), kpos.shape[1]), dtype=torch.bool, device=q.device)
             if causal:
-                mask &= kpos <= qpos
+                mask &= (kpos <= qpos) | (kpos < prefix_len)
             if window is not None:
                 mask &= kpos > qpos - window
             logits = qb @ kf[:, :, k_lo : k_lo + bk].transpose(-1, -2)

@@ -1,14 +1,18 @@
-"""Attention for prefill (causal, sliding-window, streaming softmax) and
-decode (one query against the whole cache).
+"""Attention for prefill (causal, sliding-window, prefix-LM, streaming
+softmax) and decode (one query against the whole cache).
+
+The JAX package computes both in plain JAX: its model calls no Pallas
+kernel (its ``blocked_attention`` is a scan over key chunks; the Pallas
+FlashAttention kernel of ``repro.kernels`` computes the same causal and
+windowed attention, and the port's hand-written kernels replace it).
 
 Prefill follows the tensors' device. A CUDA tensor goes to the hand-written
-attention kernels (:mod:`repro_torch.kernels.flash_attention`; the model's
-bf16 q, k and v take the tensor-core one): every window in the port is a
-Python int, so every prefill is the static-window case that the JAX package
-sends to its Pallas kernel on the accelerator. A CPU tensor runs the JAX
-package's own streaming softmax over key chunks, with its bf16 operands and
-fp32 sums. Decode is plain PyTorch on either
-device, as the JAX package computes it outside any kernel.
+attention kernels (:mod:`repro_torch.kernels.flash_attention`): bf16 q, k
+and v with a head dim up to 128 take the tensor-core one, the head dim 256
+of gemma3 and PaliGemma and every prefix-LM call (PaliGemma's image prefix)
+the CUDA-core one. A CPU tensor runs the JAX package's own streaming softmax
+over key chunks, with its bf16 operands and fp32 sums. Decode is plain
+PyTorch on either device, as the JAX package computes it.
 """
 
 from __future__ import annotations
@@ -25,6 +29,14 @@ __all__ = ["blocked_attention", "decode_attention"]
 _NEG = -1e30
 
 
+def _scale(q: torch.Tensor) -> float:
+    """1/sqrt(D) rounded to q's dtype. JAX multiplies q by the Python float
+    as a weakly typed scalar, which takes the array's dtype (bf16 for the
+    model's q); PyTorch would multiply by the unrounded value. ``q *
+    _scale(q)`` is then JAX's product: exact in fp32, rounded once."""
+    return float(torch.tensor(1.0 / (q.shape[-1] ** 0.5), dtype=q.dtype))
+
+
 def blocked_attention(
     q: torch.Tensor,  # (B, Sq, H, D)
     k: torch.Tensor,  # (B, Sk, KV, D)
@@ -36,28 +48,24 @@ def blocked_attention(
     chunk: int = 1024,
 ) -> torch.Tensor:
     """Causal (+ sliding-window / prefix-LM) attention with an fp32
-    streaming softmax. On the card: the kernel, which has no prefix-LM
-    mode. On the CPU: the JAX package's arithmetic over key chunks of
-    ``chunk``."""
+    streaming softmax. On the card: the kernels. On the CPU: the JAX
+    package's arithmetic over key chunks of ``chunk``."""
     b, sq, h, d = q.shape
     sk, kv = k.shape[1], k.shape[2]
     if kops._on_card(q, None):
-        if prefix_len:
-            raise NotImplementedError(
-                "prefix_len > 0 (prefix-LM attention) has no kernel; it comes with the vlm slice"
-            )
         # a window that reaches past every key masks nothing
         w = None if window >= sk + q_offset else int(window)
-        return flash_attention_cuda(q, k, v, causal=True, window=w, q_offset=q_offset)
+        # q scaled in its dtype as JAX scales it, so the kernels take scale 1
+        return flash_attention_cuda(q * _scale(q), k, v, causal=True, window=w,
+                                    q_offset=q_offset, prefix_len=int(prefix_len), scale=1.0)
     rep = h // kv
     chunk = min(chunk, sk)
     pad = -(-sk // chunk) * chunk - sk
     k = F.pad(k, (0, 0, 0, 0, 0, pad))
     v = F.pad(v, (0, 0, 0, 0, 0, pad))
-    scale = 1.0 / (d**0.5)
     qpos = (torch.arange(sq, device=q.device) + q_offset)[:, None]  # (Sq, 1)
     # bf16 operands, fp32 products and sums (preferred_element_type=f32)
-    q32 = (q * scale).to(COMPUTE_DTYPE).float().transpose(1, 2)  # (B, H, Sq, D)
+    q32 = (q * _scale(q)).to(COMPUTE_DTYPE).float().transpose(1, 2)  # (B, H, Sq, D)
     m = torch.full((b, h, sq), _NEG, dtype=torch.float32, device=q.device)
     l = torch.zeros_like(m)
     acc = torch.zeros((b, h, sq, d), dtype=torch.float32, device=q.device)
@@ -95,11 +103,10 @@ def decode_attention(
     b, _, h, d = q.shape
     s, kv = k_cache.shape[1], k_cache.shape[2]
     rep = h // kv
-    scale = 1.0 / (d**0.5)
     kpos = torch.arange(s, device=q.device)
     mask = (kpos < cur_len) & (kpos >= cur_len - window)
     # group q heads onto their kv head: h = kv * rep
-    qg = (q.reshape(b, 1, kv, rep, d) * scale).to(COMPUTE_DTYPE)
+    qg = (q.reshape(b, 1, kv, rep, d) * _scale(q)).to(COMPUTE_DTYPE)
     lg = torch.einsum(
         "bqgrd,bkgd->bgrqk", qg.float(), k_cache.to(COMPUTE_DTYPE).float()
     )  # (B, KV, rep, 1, S)

@@ -1,22 +1,29 @@
-"""Models built from a config: parameter init, prefill and decode.
-
-Ported so far:
-  * ``ssm`` (RWKV-6): time mixing runs the ``ssm_scan`` kernel;
+"""Models built from a config: parameter init, prefill and decode, for
+every family of the JAX package's ``repro.models.model``:
+  * ``dense`` / ``moe`` / ``vlm`` / ``audio``: pre-norm transformer blocks
+    (GQA + RoPE + a SwiGLU FFN, or top-k MoE: :mod:`repro_torch.models.moe`),
+    each layer with its window from ``cfg.layer_windows`` (gemma3's 5:1
+    local:global, Mixtral's sliding window). vlm puts its patch embeddings
+    before the tokens and attends bidirectionally over that prefix
+    (prefix-LM); audio takes frame embeddings and has one head per codebook,
+    its logits (B, codebooks * padded vocab). Prefill attention runs the
+    ``flash_attention`` kernels;
   * ``hybrid`` (Zamba2): 9 super-blocks of 6 Mamba2 layers (``ssm_scan``
     with a per-head decay), with ONE weight-shared attention+MLP block
     applied after every super-block; its prefill attention runs the
-    ``flash_attention`` kernel.
-The ``dense``, ``moe``, ``vlm`` and ``audio`` families raise
-``NotImplementedError``: they come with the attention slices.
+    ``flash_attention`` kernel;
+  * ``ssm`` (RWKV-6): time mixing runs the ``ssm_scan`` kernel.
+An unknown family raises ``ValueError``, as in the JAX package.
 
 Parameters are a dict of tensors with the JAX package's keys; per-layer
 weights are stacked on leading dims and walked with Python loops. The
 matrices that the JAX package casts to bf16 at every use (the projections,
-the conv taps, the low-rank decay's first factor, the embedding and the LM
-head) are held in bf16 once, as ``launch/steps.cast_for_compute`` does
-there: the cast is deterministic, so the numbers are the same, and decoding
-does not re-cast billions of parameters a token. Everything else (norms,
-biases, decays, skips) stays fp32.
+the conv taps, the low-rank decay's first factor, the experts, the
+embedding and the LM head) are held in bf16 once, as
+``launch/steps.cast_for_compute`` does there: the cast is deterministic, so
+the numbers are the same, and decoding does not re-cast billions of
+parameters a token. Everything else (norms, biases, decays, skips, the MoE
+router) stays fp32.
 """
 
 from __future__ import annotations
@@ -32,28 +39,26 @@ from repro_torch.device import resolve_device
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import blocked_attention, decode_attention
 from repro_torch.models.layers import COMPUTE_DTYPE, apply_rope, dense_ffn, normal_init, rms_norm
+from repro_torch.models.moe import moe_ffn
 
 __all__ = ["init_params", "params_from_jax", "init_cache", "prefill", "decode_step"]
 
 # held in bf16 (see the module docstring), by leaf name: RWKV-6's, then
-# Zamba2's (no name of one family names an fp32 leaf of the other);
-# ``w_lora_b`` is used in fp32
+# Zamba2's and the transformers' (no name of one family names an fp32 leaf
+# of another); ``w_lora_b`` and the MoE ``router`` are used in fp32
 BF16_WEIGHTS = frozenset({
     "embed", "lm_head",
     "w_r", "w_k", "w_v", "w_g", "w_lora_a", "w_o", "w_ck", "w_cv", "w_cr",
     "in_proj", "conv_w", "out_proj", "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
 })
 
-_PORTED = ("ssm", "hybrid")
+_TRANSFORMERS = ("dense", "moe", "vlm", "audio")
+_FAMILIES = _TRANSFORMERS + ("hybrid", "ssm")
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family in _PORTED:
-        return
-    raise NotImplementedError(
-        f"{cfg.name}: the {cfg.family!r} family is not ported yet; it comes with the "
-        "attention slices"
-    )
+    if cfg.family not in _FAMILIES:
+        raise ValueError(cfg.family)
 
 
 def _check_ctx(ctx) -> None:
@@ -99,12 +104,13 @@ def _rwkv_params(gen: torch.Generator, cfg: ModelConfig, layers: int, dev: torch
     }
 
 
-def _attn_params(gen: torch.Generator, cfg: ModelConfig, dev: torch.device):
-    """One attention block's projections (the shared block: no L dim)."""
+def _attn_params(gen: torch.Generator, cfg: ModelConfig, dev: torch.device, lead=()):
+    """Attention projections, stacked on the ``lead`` dims (the shared
+    block: none; a transformer: its layers)."""
     d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
 
     def mat(*s, std=None):
-        return normal_init(gen, s, std, dtype=COMPUTE_DTYPE, device=dev)
+        return normal_init(gen, (*lead, *s), std, dtype=COMPUTE_DTYPE, device=dev)
 
     return {
         "wq": mat(d, h * hd),
@@ -114,13 +120,22 @@ def _attn_params(gen: torch.Generator, cfg: ModelConfig, dev: torch.device):
     }
 
 
-def _ffn_params(gen: torch.Generator, cfg: ModelConfig, dev: torch.device):
-    """One dense SwiGLU FFN (the shared block: no L dim)."""
+def _ffn_params(gen: torch.Generator, cfg: ModelConfig, dev: torch.device, lead=()):
+    """A SwiGLU FFN, or ``cfg.num_experts`` of them and their fp32 router,
+    stacked on the ``lead`` dims (the shared block: none)."""
     d, f = cfg.d_model, cfg.d_ff
 
-    def mat(*s):
-        return normal_init(gen, s, dtype=COMPUTE_DTYPE, device=dev)
+    def mat(*s, std=None, dtype=COMPUTE_DTYPE):
+        return normal_init(gen, (*lead, *s), std, dtype=dtype, device=dev)
 
+    if cfg.num_experts:
+        e = cfg.num_experts
+        return {
+            "router": mat(d, e, std=0.02, dtype=torch.float32),
+            "w_gate": mat(e, d, f, std=1.0 / math.sqrt(d)),
+            "w_up": mat(e, d, f, std=1.0 / math.sqrt(d)),
+            "w_down": mat(e, f, d, std=1.0 / math.sqrt(f)),
+        }
     return {"w_gate": mat(d, f), "w_up": mat(d, f), "w_down": mat(f, d)}
 
 
@@ -168,12 +183,22 @@ def init_params(
     else:
         gen = torch.Generator(device=dev).manual_seed(int(seed_or_generator))
     d, vp = cfg.d_model, cfg.padded_vocab
-    params: Dict[str, Any] = {
-        "final_norm": torch.zeros(d, dtype=torch.float32, device=dev),
-        "embed": normal_init(gen, (vp, d), 0.02, dtype=COMPUTE_DTYPE, device=dev),
-        "lm_head": normal_init(gen, (d, vp), 0.02, dtype=COMPUTE_DTYPE, device=dev),
-    }
-    if cfg.family == "hybrid":
+    params: Dict[str, Any] = {"final_norm": torch.zeros(d, dtype=torch.float32, device=dev)}
+    if cfg.family == "audio":  # no token embedding: one head per codebook
+        params["lm_head"] = normal_init(gen, (d, cfg.num_codebooks * vp), 0.02,
+                                        dtype=COMPUTE_DTYPE, device=dev)
+    else:
+        params["embed"] = normal_init(gen, (vp, d), 0.02, dtype=COMPUTE_DTYPE, device=dev)
+        params["lm_head"] = normal_init(gen, (d, vp), 0.02, dtype=COMPUTE_DTYPE, device=dev)
+    if cfg.family in _TRANSFORMERS:
+        L = cfg.num_layers
+        params["layers"] = {
+            "ln1": torch.zeros((L, d), dtype=torch.float32, device=dev),
+            "ln2": torch.zeros((L, d), dtype=torch.float32, device=dev),
+            **_attn_params(gen, cfg, dev, (L,)),
+            **_ffn_params(gen, cfg, dev, (L,)),
+        }
+    elif cfg.family == "hybrid":
         params["mamba"] = _mamba_params(gen, cfg, dev)
         params["shared_attn"] = {
             "ln1": torch.zeros(d, dtype=torch.float32, device=dev),
@@ -236,8 +261,26 @@ def _logits(cfg: ModelConfig, params, x_last: torch.Tensor) -> torch.Tensor:
     return (x_last @ params["lm_head"].to(COMPUTE_DTYPE)).float()
 
 
+def _embed_step(cfg: ModelConfig, params, batch) -> torch.Tensor:
+    """(B, S, D) bf16: audio's frame embeddings, else the tokens'
+    embeddings. What a decode step takes."""
+    if cfg.family == "audio":
+        return batch["frame_embeds"].to(params["lm_head"].device, COMPUTE_DTYPE)
+    return _embed(params, batch["tokens"])
+
+
+def _embed_inputs(cfg: ModelConfig, params, batch):
+    """Returns (hidden (B, S, D) bf16, prefix_len): :func:`_embed_step`'s,
+    after vlm's patch embeddings for a prompt."""
+    tok = _embed_step(cfg, params, batch)
+    if cfg.family == "vlm":
+        patches = batch["patch_embeds"].to(tok.device, COMPUTE_DTYPE)
+        return torch.cat([patches, tok], dim=1), cfg.num_patches
+    return tok, 0
+
+
 # ---------------------------------------------------------------------------
-# Transformer blocks (Zamba2's shared block)
+# Transformer blocks (the transformers' layers and Zamba2's shared block)
 # ---------------------------------------------------------------------------
 
 
@@ -253,18 +296,22 @@ def _attn_qkv(x, p, cfg: ModelConfig, positions):
     return apply_rope(q, positions, cfg.rope_theta), apply_rope(k, positions, cfg.rope_theta), v
 
 
-def _attn_block(x, p, cfg: ModelConfig, *, window, positions):
+def _attn_block(x, p, cfg: ModelConfig, *, window, positions, prefix_len=0):
     """Returns (x + attention, (k, v)): the keys and values for the cache."""
     b, s, _ = x.shape
     q, k, v = _attn_qkv(x, p, cfg, positions)
-    o = blocked_attention(q, k, v, window=window)
+    o = blocked_attention(q, k, v, window=window, prefix_len=prefix_len)
     x = x + o.reshape(b, s, -1) @ p["wo"].to(COMPUTE_DTYPE)
     return x, (k, v)
 
 
 def _ffn_block(x, p, cfg: ModelConfig):
     a = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + dense_ffn(a, p["w_gate"], p["w_up"], p["w_down"])
+    if cfg.num_experts:
+        y = moe_ffn(a, p, k=cfg.experts_per_token, capacity_factor=cfg.moe_capacity_factor)
+    else:
+        y = dense_ffn(a, p["w_gate"], p["w_up"], p["w_down"])
+    return x + y
 
 
 def _decode_attn_layer(x, p, cfg: ModelConfig, kc, vc, cur_len: int, window: int, positions):
@@ -288,14 +335,21 @@ def init_cache(
     cfg: ModelConfig, batch: int, max_len: int, *,
     device: Union[None, str, torch.device] = None,
 ) -> Dict[str, Any]:
-    """Zero cache for ``max_len`` positions. An RWKV-6 cache holds each
-    layer's recurrence state and two token-shift carries, whatever the
-    length; a Zamba2 cache holds each Mamba2 layer's state and conv carry
-    under ``"mamba"`` (super-block, layer, ...), and the shared attention's
-    keys and values at each of its applications (super-block, B, max_len,
-    KV, hd). ``device="meta"`` sizes it without memory."""
+    """Zero cache for ``max_len`` positions. A transformer's cache holds
+    each layer's keys and values (L, B, max_len, KV, hd) bf16; an RWKV-6
+    cache holds each layer's recurrence state and two token-shift carries,
+    whatever the length; a Zamba2 cache holds each Mamba2 layer's state and
+    conv carry under ``"mamba"`` (super-block, layer, ...), and the shared
+    attention's keys and values at each of its applications (super-block,
+    B, max_len, KV, hd). ``device="meta"`` sizes it without memory."""
     _check_family(cfg)
     dev = resolve_device(device)
+    if cfg.family in _TRANSFORMERS:
+        kv_shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+        return {
+            "k": torch.zeros(kv_shape, dtype=COMPUTE_DTYPE, device=dev),
+            "v": torch.zeros(kv_shape, dtype=COMPUTE_DTYPE, device=dev),
+        }
     if cfg.family == "hybrid":
         nb, ae = cfg.num_layers // cfg.attn_every, cfg.attn_every
         mam = ssm_mod.mamba2_init_cache(cfg, batch, COMPUTE_DTYPE, device="meta")
@@ -330,6 +384,20 @@ def _rwkv_decode(cfg: ModelConfig, params, x, cache):
     return x, _stack(news)
 
 
+def _transformer_decode(cfg: ModelConfig, params, x, cache, cur_len: int):
+    positions = torch.full((x.shape[0], 1), cur_len, dtype=torch.long, device=x.device)
+    # every layer's window, a full one capped as the JAX package caps it
+    windows = [min(w, 2**30) for w in cfg.layer_windows(10**9)]
+    # the given cache is shared by every generate task of its prompt: the
+    # token's keys and values go into a copy
+    knew, vnew = cache["k"].clone(), cache["v"].clone()
+    for i, window in enumerate(windows):
+        p = _unstack(params["layers"], i)
+        x = _decode_attn_layer(x, p, cfg, knew[i], vnew[i], cur_len, window, positions)
+        x = _ffn_block(x, p, cfg)
+    return x, {"k": knew, "v": vnew}
+
+
 def _hybrid_decode(cfg: ModelConfig, params, x, cache, cur_len: int):
     shared = params["shared_attn"]
     positions = torch.full((x.shape[0], 1), cur_len, dtype=torch.long, device=x.device)
@@ -355,12 +423,15 @@ def _hybrid_decode(cfg: ModelConfig, params, x, cache, cur_len: int):
 
 def decode_step(cfg: ModelConfig, params, batch, cache, cur_len: int, ctx=None):
     """One token for every sequence at position ``cur_len``. ``batch``:
-    {"tokens": (B, 1)}. Returns (logits fp32 (B, V), new cache); ``cache``
+    {"tokens": (B, 1)}, or {"frame_embeds": (B, 1, D)} for audio. Returns
+    (logits fp32 (B, V), audio's (B, codebooks * V), new cache); ``cache``
     is not modified."""
     _check_family(cfg)
     _check_ctx(ctx)
-    x = _embed(params, batch["tokens"])
-    if cfg.family == "hybrid":
+    x = _embed_step(cfg, params, batch)
+    if cfg.family in _TRANSFORMERS:
+        x, cache = _transformer_decode(cfg, params, x, cache, int(cur_len))
+    elif cfg.family == "hybrid":
         x, cache = _hybrid_decode(cfg, params, x, cache, int(cur_len))
     else:
         x, cache = _rwkv_decode(cfg, params, x, cache)
@@ -385,6 +456,22 @@ def _rwkv_prefill(cfg: ModelConfig, params, x):
         "cm_prev": torch.stack(cm_prev),
     }
     return x, cache
+
+
+def _transformer_prefill(cfg: ModelConfig, params, x, prefix_len: int, max_len: int):
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    kv_shape = (cfg.num_layers, b, max_len, cfg.num_kv_heads, cfg.head_dim)
+    kc = torch.zeros(kv_shape, dtype=COMPUTE_DTYPE, device=x.device)
+    vc = torch.zeros(kv_shape, dtype=COMPUTE_DTYPE, device=x.device)
+    for i, window in enumerate(cfg.layer_windows(s)):
+        p = _unstack(params["layers"], i)
+        x, (k, v) = _attn_block(x, p, cfg, window=window, positions=positions,
+                                prefix_len=prefix_len)
+        x = _ffn_block(x, p, cfg)
+        kc[i, :, :s] = k
+        vc[i, :, :s] = v
+    return x, {"k": kc, "v": vc}
 
 
 def _hybrid_prefill(cfg: ModelConfig, params, x, max_len: int):
@@ -416,12 +503,16 @@ def _hybrid_prefill(cfg: ModelConfig, params, x, max_len: int):
 
 
 def prefill(cfg: ModelConfig, params, batch, max_len: int, ctx=None):
-    """Run the prompt; returns (last-position logits fp32 (B, V), filled
-    cache, length)."""
+    """Run the prompt; returns (last-position logits fp32 (B, V), audio's
+    (B, codebooks * V), filled cache, length). ``batch``: {"tokens": (B,
+    S)}; vlm also {"patch_embeds": (B, num_patches, D)}, put before the
+    tokens; audio {"frame_embeds": (B, S, D)} only."""
     _check_family(cfg)
     _check_ctx(ctx)
-    x = _embed(params, batch["tokens"])
-    if cfg.family == "hybrid":
+    x, prefix_len = _embed_inputs(cfg, params, batch)
+    if cfg.family in _TRANSFORMERS:
+        x, cache = _transformer_prefill(cfg, params, x, prefix_len, max_len)
+    elif cfg.family == "hybrid":
         x, cache = _hybrid_prefill(cfg, params, x, max_len)
     else:
         x, cache = _rwkv_prefill(cfg, params, x)

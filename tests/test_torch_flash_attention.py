@@ -2,8 +2,10 @@
 bar (2e-5; 3e-5 for the property cases): the plain versions
 ``attention_ref`` and ``flash_attention_blocked`` against JAX's
 ``attention_ref`` and the Pallas kernel in interpret mode on the cases of
-tests/test_kernel_flash_attention.py, the device dispatch, and (on a card
-only) the CUDA kernel against its plain versions in fp32 and bf16."""
+tests/test_kernel_flash_attention.py, the device dispatch, the prefix-LM
+mask (PaliGemma's image prefix, which the JAX model computes in its plain
+``blocked_attention``) in both plain versions, and (on a card only) the CUDA
+kernels against their plain versions in fp32 and bf16."""
 
 from types import SimpleNamespace
 
@@ -25,6 +27,8 @@ WINDOWS = [8, 32, 100]
 # (s, h, window, seed): fixed draws from the property test's ranges
 PROPERTY = [(8, 1, None, 0), (17, 2, 4, 11), (33, 4, 64, 5), (50, 1, 16, 100),
             (64, 2, None, 7), (80, 4, 9, 99), (23, 2, 23, 42), (71, 1, 5, 3)]
+# prefix-LM: none, one key, a tile of the CUDA-core kernel, most of the keys
+PREFIX = [0, 1, 64, 200]
 
 
 @pytest.fixture(scope="module")
@@ -131,6 +135,43 @@ def test_bf16_oracle_matches_jax(jx):
                                rtol=2 ** -7, atol=2 ** -8)
 
 
+@pytest.mark.parametrize("prefix_len", PREFIX)
+@pytest.mark.parametrize("d", [64, 256])
+def test_prefix_blocked_matches_oracle(prefix_len, d):
+    """The prefix-LM mask in both plain versions, causal and with a window
+    that cuts into the prefix: the blocked version (the CUDA-core kernel's
+    fp32 arithmetic, 64-query and 64-key blocks) within 2e-5 of the
+    oracle. Every query sees the whole prefix within its window."""
+    t = _t(qkv(1, 230, 230, 4, 1, d, seed=prefix_len + d))
+    for window in (None, 48):
+        want = tref.attention_ref(*t, window=window, prefix_len=prefix_len)
+        got = tref.flash_attention_blocked(*t, window=window, prefix_len=prefix_len,
+                                           block_q=64, block_k=64)
+        _close(got, want)
+    if prefix_len > 1:  # the first query sees the prefix: not what causal gives it
+        assert not torch.allclose(want[:, 0], tref.attention_ref(*t, window=48)[:, 0])
+
+
+@pytest.mark.parametrize("prefix_len", PREFIX[1:])
+def test_prefix_oracle_matches_jax_model(prefix_len):
+    """The oracle's prefix-LM mask is the JAX model's (``(kpos <= qpos) |
+    (kpos < prefix_len)``, then the window): against its blocked_attention
+    on bf16 values, at the reference's bf16 bar of 2e-2 (JAX rounds q·scale
+    and the probabilities to bf16)."""
+    import jax.numpy as jnp
+
+    from repro.models.attention import blocked_attention
+
+    arrays = qkv(1, 230, 230, 4, 1, 32, seed=prefix_len)
+    t32 = [x.float() for x in _t(arrays, dtype=torch.bfloat16)]
+    for window in (230, 48):
+        want = blocked_attention(*[jnp.asarray(a).astype(jnp.bfloat16) for a in arrays],
+                                 window=window, prefix_len=prefix_len, chunk=64)
+        got = tref.attention_ref(*t32, window=None if window == 230 else window,
+                                 prefix_len=prefix_len)
+        _close(got, np.asarray(want.astype(jnp.float32)), 2e-2)
+
+
 def test_dispatch_sends_cpu_tensors_to_the_oracle():
     t = _t(qkv(1, 40, 40, 4, 2, 16, seed=4))
     before = tkernel.LAUNCHES.value
@@ -215,6 +256,25 @@ def test_cuda_kernel_bf16(card):
 
 
 @pytest.mark.gpu
+def test_cuda_kernels_take_a_scale(card):
+    """Both kernels scale the logits by ``scale`` when one is given: the
+    CUDA-core kernel at 2e-5 of ``attention_ref(scale=...)`` in fp32, the
+    tensor-core kernel within one bf16 rounding of its blocked plain
+    version with the same scale."""
+    t = _t(qkv(1, 150, 150, 4, 2, 64, seed=11), card)
+    got = tkernel.flash_attention_simt(*t, scale=0.1)
+    _close(got, tref.attention_ref(*t, scale=0.1))
+    assert float((got - tref.attention_ref(*t)).abs().max()) > 1e-3
+    tb = [x.to(torch.bfloat16) for x in t]
+    before = tkernel.WGMMA_LAUNCHES.value
+    got = tkernel.flash_attention_wgmma(*tb, scale=0.1)
+    torch.cuda.synchronize()
+    assert tkernel.WGMMA_LAUNCHES.value == before + 1
+    want = tref.flash_attention_blocked(*tb, scale=0.1)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=2 ** -7, atol=2 ** -9)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("d", [72, 24])
 def test_cuda_kernel_bf16_other_head_dims(card, d):
     """bf16 with D not a multiple of 16 goes to the CUDA-core kernel by
@@ -271,6 +331,47 @@ def test_wgmma_refuses_head_dims_over_128(card):
     before = tkernel.WGMMA_LAUNCHES.value
     with pytest.raises(ValueError, match="up to 128"):
         tkernel.flash_attention_wgmma(*t)
+    assert tkernel.WGMMA_LAUNCHES.value == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 256])
+def test_cuda_kernel_prefix_lm(card, d):
+    """Prefix-LM attention goes to the CUDA-core kernel whatever the dtype
+    and head dim: fp32 within 2e-5 of the oracle, causal and windowed; bf16
+    within one bf16 rounding of the blocked version's fp32 arithmetic on
+    the same values (the tensor-core arithmetic rounds P, this kernel does
+    not)."""
+    t = _t(qkv(1, 230, 230, 4, 1, d, seed=d), card)
+    tb = [x.to(torch.bfloat16) for x in t]
+    for prefix_len in PREFIX:
+        for window in (None, 48):
+            before, wgmma = tkernel.LAUNCHES.value, tkernel.WGMMA_LAUNCHES.value
+            got = tkernel.flash_attention_cuda(*t, window=window, prefix_len=prefix_len)
+            torch.cuda.synchronize()
+            assert tkernel.LAUNCHES.value == before + 1 and tkernel.WGMMA_LAUNCHES.value == wgmma
+            _close(got, tref.attention_ref(*t, window=window, prefix_len=prefix_len))
+        before, wgmma = tkernel.LAUNCHES.value, tkernel.WGMMA_LAUNCHES.value
+        got = tkernel.flash_attention_cuda(*tb, prefix_len=prefix_len)
+        torch.cuda.synchronize()
+        cuda_cores = prefix_len > 0 or d > tkernel.WGMMA_MAX_HEAD_DIM
+        assert tkernel.LAUNCHES.value == before + cuda_cores
+        assert tkernel.WGMMA_LAUNCHES.value == wgmma + (not cuda_cores)
+        # each kernel's own arithmetic: fp32 P on the CUDA cores, bf16 P on the tensor cores
+        want = tref.flash_attention_blocked(*([x.float() for x in tb] if cuda_cores else tb),
+                                            prefix_len=prefix_len)
+        np.testing.assert_allclose(_np(got), _np(want.to(torch.bfloat16)), rtol=2 ** -7,
+                                   atol=2 ** -8)
+
+
+@pytest.mark.gpu
+def test_wgmma_refuses_prefix(card):
+    """The tensor-core kernel has no prefix-LM mask: called by name with a
+    prefix it raises, and never launches."""
+    t = _t(qkv(1, 64, 64, 2, 2, 64, seed=0), card, torch.bfloat16)
+    before = tkernel.WGMMA_LAUNCHES.value
+    with pytest.raises(ValueError, match="prefix"):
+        tkernel.flash_attention_wgmma(*t, prefix_len=16)
     assert tkernel.WGMMA_LAUNCHES.value == before
 
 

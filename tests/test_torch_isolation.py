@@ -40,6 +40,7 @@ def test_imports_with_jax_blocked():
         "import repro_torch.configs, repro_torch.models, repro_torch.core.sa_serve\n"
         "import repro_torch.kernels.ssm_scan, repro_torch.runtime.tensors\n"
         "import repro_torch.kernels.flash_attention, repro_torch.models.attention\n"
+        "import repro_torch.models.moe\n"
         "import repro_torch.study, repro_torch.runtime.objstore\n"
         "import repro_torch.runtime.net, repro_torch.runtime.simulator\n"
         "import repro_torch.service, repro_torch.service.__main__\n"

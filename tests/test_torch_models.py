@@ -132,16 +132,54 @@ def test_init_params_shapes_match_params_from_jax(port):
         assert (a[k].shape, a[k].dtype) == (b[k].shape, b[k].dtype), k
 
 
+def _flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = v
+    return out
+
+
 @pytest.mark.parametrize("arch", ["gemma3_1b", "granite_moe_1b_a400m", "paligemma_3b",
                                   "musicgen_medium"])
-def test_other_families_raise_naming_their_slice(arch):
-    """The dense, moe, vlm and audio families are not ported yet."""
+def test_transformer_families_match_jax_trees(jx, arch):
+    """The dense, moe, vlm and audio families build what JAX's
+    ``init_params`` and ``init_cache`` build: the same keys and shapes, and
+    JAX's dtypes for the cache; the parameters are fp32 in JAX and held in
+    bf16 by the port exactly for the leaves of ``BF16_WEIGHTS``."""
+    from repro.models import init_cache as jcache, init_params as jparams
+
+    from repro_torch.models import model as tmodel
+
+    jax = jx["jax"]
+    jcfg = jx["configs"].reduced_config(jx["configs"].get_config(arch))
     cfg = tconfigs.reduced_config(tconfigs.get_config(arch))
     assert cfg.family in ("dense", "moe", "vlm", "audio")
-    with pytest.raises(NotImplementedError, match=f"{cfg.family}.*attention slices"):
-        init_cache(cfg, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match=f"{cfg.family}.*attention slices"):
-        init_params(cfg, 0, device="cpu")
+    want = _flat(jax.eval_shape(lambda: jparams(jcfg, jax.random.key(0))))
+    got = _flat(init_params(cfg, 0, device="cpu"))
+    assert got.keys() == want.keys()
+    for k, v in want.items():
+        leaf = k.rsplit(".", 1)[-1]
+        assert tuple(got[k].shape) == v.shape, k
+        assert got[k].dtype == (torch.bfloat16 if leaf in tmodel.BF16_WEIGHTS else torch.float32)
+    want = _flat(jax.eval_shape(lambda: jcache(jcfg, 1, 8)))
+    got = _flat(init_cache(cfg, 1, 8, device="cpu"))
+    assert got.keys() == want.keys()
+    for k, v in want.items():
+        assert tuple(got[k].shape) == v.shape and str(got[k].dtype).endswith(str(v.dtype)), k
+
+
+def test_unknown_family_raises_value_error():
+    """As in the JAX package: a family no model builds is a ValueError."""
+    cfg = dataclasses.replace(tconfigs.reduced_config(tconfigs.get_config("granite_3_8b")),
+                              family="diffusion")
+    for build in (lambda: init_params(cfg, 0, device="cpu"),
+                  lambda: init_cache(cfg, 1, 8, device="cpu"),
+                  lambda: prefill(cfg, {}, {"tokens": torch.zeros(1, 4, dtype=torch.long)}, 8)):
+        with pytest.raises(ValueError, match="diffusion"):
+            build()
 
 
 def test_rms_norm(jx, port):

@@ -263,6 +263,7 @@ def test_mamba2_decode(jx, port, hidden):
 
 @pytest.mark.parametrize("window,q_offset,prefix_len,kv", [
     (24, 0, 0, 4), (8, 0, 0, 4), (24, 0, 0, 2), (100, 40, 0, 2), (6, 0, 5, 4),
+    (24, 0, 16, 1), (8, 0, 12, 2), (10, 0, 20, 4),
 ])
 def test_blocked_attention(jx, window, q_offset, prefix_len, kv):
     """The CPU path runs JAX's streaming softmax over key chunks (chunk 16
@@ -511,8 +512,13 @@ def test_card_blocked_attention_runs_the_kernel(card):
     want = tattn.blocked_attention(q.cpu(), k.cpu(), v.cpu(), window=40)
     # both round p to bf16; the CPU path also rounds q·scale to bf16
     np.testing.assert_allclose(_np(got.cpu()), _np(want), rtol=2 ** -6, atol=2 ** -7)
-    with pytest.raises(NotImplementedError, match="vlm"):
-        tattn.blocked_attention(q, k, v, window=40, prefix_len=4)
+    # a prefix-LM call (PaliGemma's image prefix) takes the CUDA-core kernel
+    before, simt = fa.WGMMA_LAUNCHES.value, fa.LAUNCHES.value
+    got = tattn.blocked_attention(q, k, v, window=16, prefix_len=24)
+    assert fa.WGMMA_LAUNCHES.value == before and fa.LAUNCHES.value == simt + 1
+    want = tattn.blocked_attention(q.cpu(), k.cpu(), v.cpu(), window=16, prefix_len=24)
+    # the CPU path rounds q·scale and p to bf16, the kernel neither
+    np.testing.assert_allclose(_np(got.cpu()), _np(want), rtol=2 ** -6, atol=2 ** -6)
 
 
 @pytest.mark.gpu

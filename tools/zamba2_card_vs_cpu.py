@@ -17,8 +17,9 @@ logits lie from the CPU's own run:
 - ``card, both plain, full bf16 sums``: the same with cuBLAS's reduced
   precision reductions in bf16 products turned off;
 - ``cpu, attention as the kernel``: the CPU's attention in the tensor-core
-  kernel's arithmetic (``flash_attention_blocked``: q·k in fp32 times the
-  scale, P rounded to bf16 per 128-key tile);
+  kernel's arithmetic (``flash_attention_blocked`` on q scaled in bf16, as
+  ``blocked_attention`` hands it over: q·k in fp32, P rounded to bf16 per
+  128-key tile);
 - ``cpu, ssm_scan as the kernel``: the CPU's scan through the kernel's
   three passes (``ssm_scan_three_pass``).
 
