@@ -33,9 +33,12 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
     cores with ``wgmma`` and TMA);
 11. ``flash_attention`` vs its plain versions on the card: the cases of
     tests/test_kernel_flash_attention.py in fp32 on the CUDA-core kernel,
-    and in bf16 on the tensor-core kernel; then at the prefill's real shape
-    and types (the shared block's first application in Zamba2 2.7B), with
-    both kernels' times, the bound, the plain time and the time of
+    and in bf16 on the tensor-core kernel, which also takes head dims 144
+    to 256 (64-key tiles) and the prefix-LM mask; gemma3_1b's (1, 4096, 4,
+    256) kv 1, causal and with its 512-key window, fp32 on the CUDA-core
+    kernel and bf16 on the tensor-core one; then at the prefill's real
+    shape and types (the shared block's first application in Zamba2 2.7B),
+    with both kernels' times, the bound, the plain time and the time of
     PyTorch's ``scaled_dot_product_attention`` on the same tensors;
 12. the SA-serve study on Zamba2 2.7B at full width: 3 prompts of 4096
     tokens × 12 decoding settings × 3 thresholds, counting the kernels'
@@ -70,26 +73,28 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
     tenants;
 20. the SA-serve study on gemma3_1b at full width and depth (26 layers,
     head dim 256, 5:1 local:global windows): phase 12's prompts and grid,
-    the JAX planner's counts, every prefill attention on the CUDA-core
-    kernel and none on the tensor cores;
+    the JAX planner's counts, every prefill attention on the tensor-core
+    kernel and none on the CUDA cores;
 21. the same study on granite_moe_1b_a400m at full width (32 experts
     top-8: each 4096-token prefill takes the capacity-bounded MoE branch,
     whose dropped token slots are printed), attention on the tensor cores,
     held at layer 0's real q, k and v to its blocked plain version;
 22. ``prefill`` and 16 ``decode_step`` calls on paligemma_3b (256 seeded
-    patch embeddings and 1024 tokens: prefix-LM attention on the CUDA-core
-    kernel, held to ``attention_ref(prefix_len=256)`` at its shape first,
-    with its time, bound and SDPA's with a boolean mask) and on
-    musicgen_medium (4096 seeded frame embeddings, four codebook heads;
-    the tensor-core kernel held at layer 0's real q, k and v as in 21) at
-    full width;
+    patch embeddings and 1024 tokens: prefix-LM attention on the
+    tensor-core kernel, held at its shape first, fp32 on the CUDA-core
+    kernel to ``attention_ref(prefix_len=256)`` and bf16 to
+    ``flash_attention_blocked``, with times, bounds and SDPA's with a
+    boolean mask) and on musicgen_medium (4096 seeded frame embeddings,
+    four codebook heads), the tensor-core kernel held at each one's layer
+    0 real q, k and v as in 21, at full width;
 23. card against CPU on the reduced gemma3_1b, granite_moe_1b_a400m and
     mixtral_8x7b (serve study and prefill, as phases 9 and 13) and
     paligemma_3b and musicgen_medium (prefill logits and caches).
 
 Phase 7 also holds ``ssm_scan`` at Mamba2's real shape (layer 0 of the
-Zamba2 prefill: a per-head decay); phase 11 the CUDA-core attention kernel
-at gemma3_1b's head dim 256, causal and with its 512-key window. The last three lines are the kernels
+Zamba2 prefill: a per-head decay). Kernel times of short calls are device
+times from a CUDA graph of the calls (``graph_ms``), with the time a call
+takes from the host beside them. The last three lines are the kernels
 JSON, the ``nvidia-smi`` name and power limit, and
 ``{"ok": true, "device": {...}}``.
 """
@@ -107,6 +112,7 @@ import math
 import os
 import pathlib
 import queue
+import re
 import shutil
 import signal
 import subprocess
@@ -259,68 +265,113 @@ def attn_pairs(sq: int, window=None) -> int:
     return window * (window + 1) // 2 + (sq - window) * window
 
 
+def sdpa_call(q, k, v, window=None, prefix_len=0, scale=None):
+    """PyTorch's scaled_dot_product_attention on (B, S, H, D) tensors, the
+    yardstick: is_causal where the mask is plain causal, else the same mask
+    as an explicit boolean tensor (a window, a prefix)."""
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    sdpa = functools.partial(torch.nn.functional.scaled_dot_product_attention, qt, kt, vt,
+                             scale=scale, enable_gqa=True)
+    if window is None and not prefix_len:
+        return functools.partial(sdpa, is_causal=True)
+    i = torch.arange(q.shape[1], device=q.device)
+    keep = (i[None, :] <= i[:, None]) | (i[None, :] < prefix_len)
+    if window is not None:
+        keep &= i[None, :] > i[:, None] - window
+    return functools.partial(sdpa, attn_mask=keep)
+
+
+def d256_case(flash_attention, kref, name, shape, window=None, prefix_len=0):
+    """Phases 11 and 22 at head dim 256: q, k, v of (B, S, H, D) with KV kv
+    heads, seeded, causal with a window or a prefix-LM mask. fp32 on the
+    CUDA-core kernel (one launch) within 2e-5 of ``attention_ref``; bf16 on
+    the tensor-core kernel (one launch) within one bf16 rounding of
+    ``flash_attention_blocked`` at the kernel's key tile and 2e-2 of
+    ``attention_ref``. Times (bf16: device time from a CUDA graph of the
+    calls, and a call's time from the host; fp32: a call's time from the
+    host), bounds (fp32: the fp32 rate; bf16: the bf16 tensor rate, against
+    the bytes), the plain version's time, and SDPA's in both types.
+    Returns the numbers."""
+    b, s, h, kv, d = shape
+    q, k, v = qkv_case(b, s, s, h, kv, d, seed=d + prefix_len + (window or 0))
+    kw = dict(window=window, prefix_len=prefix_len)
+    before, wgmma = flash_attention.LAUNCHES.value, flash_attention.WGMMA_LAUNCHES.value
+    got = flash_attention.flash_attention_cuda(q, k, v, **kw)
+    torch.cuda.synchronize()
+    check(flash_attention.LAUNCHES.value == before + 1
+          and flash_attention.WGMMA_LAUNCHES.value == wgmma, f"{name} fp32: one CUDA-core launch")
+    want = kref.attention_ref(q, k, v, **kw)
+    check(torch.allclose(got, want, rtol=2e-5, atol=2e-5),
+          f"{name} fp32 within 2e-5 of attention_ref")
+    err = float((got - want).abs().max())
+    out = dict(max_abs_err=err)
+    if prefix_len:
+        out["causal_gap"] = float((got - kref.attention_ref(q, k, v, window=window)).abs().max())
+        check(out["causal_gap"] > 1e-3, f"{name}: the prefix changes the result (not plain causal)")
+    qb, kb, vb = (t.bfloat16() for t in (q, k, v))
+    before, simt = flash_attention.WGMMA_LAUNCHES.value, flash_attention.LAUNCHES.value
+    got_b = flash_attention.flash_attention_cuda(qb, kb, vb, **kw)
+    torch.cuda.synchronize()
+    check(flash_attention.WGMMA_LAUNCHES.value == before + 1
+          and flash_attention.LAUNCHES.value == simt, f"{name} bf16: one tensor-core launch")
+    want_b = kref.flash_attention_blocked(qb, kb, vb, **kw)  # bf16 P, the kernel's key tile
+    check(torch.allclose(got_b.float(), want_b.float(), rtol=2 ** -7, atol=2 ** -8),
+          f"{name} bf16 within one bf16 rounding of flash_attention_blocked")
+    check(torch.allclose(got_b.float(), want.float(), rtol=2e-2, atol=2e-2),
+          f"{name} bf16 within 2e-2 of attention_ref")
+    out["max_abs_err_bf16"] = float((got_b.float() - want_b.float()).abs().max())
+    out["max_abs_err_bf16_vs_ref"] = float((got_b.float() - want).abs().max())
+    del want, want_b
+    for tag, args in (("", (q, k, v)), ("bf16_", (qb, kb, vb))):
+        call = functools.partial(flash_attention.flash_attention_cuda, *args, **kw)
+        sdpa = sdpa_call(*args, window=window, prefix_len=prefix_len)
+        out[f"{tag}sdpa_max_abs_diff"] = float(
+            (sdpa().transpose(1, 2).float() - (got if tag == "" else got_b).float()).abs().max())
+        if tag:  # a short call: device time, and beside it the time from the host
+            out[f"{tag}ms"], out[f"{tag}library_ms"] = graph_ms(call, 10), graph_ms(sdpa, 10)
+            out[f"{tag}host_ms"] = cuda_ms(call, 10)
+        else:
+            out[f"{tag}ms"], out[f"{tag}library_ms"] = cuda_ms(call, 5), cuda_ms(sdpa, 5)
+    out["plain_ms"] = cuda_ms(lambda: kref.flash_attention_blocked(qb, kb, vb, **kw), 1)
+    pairs = (kept_pairs(s, prefix_len) if prefix_len else attn_pairs(s, window)) * h * b
+    flops = 4 * d * pairs
+    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, got))
+    out["bound_ms"] = max(nbytes / HBM_BYTES_PER_S, flops / FP32_OPS_PER_S) * 1e3
+    out["bf16_bound_ms"] = max(nbytes / 2 / HBM_BYTES_PER_S, flops / BF16_OPS_PER_S) * 1e3
+    out["bf16_bound_by"] = "bytes" if nbytes / 2 / HBM_BYTES_PER_S > flops / BF16_OPS_PER_S else \
+        "operations"
+    print(f"{name} {(b, s, h, d)} kv {kv}: fp32 (CUDA cores) max abs err {err:.3g} vs "
+          f"attention_ref" + (f" (plain causal would differ by {out['causal_gap']:.3g})"
+                              if prefix_len else "")
+          + f"; bf16 (tensor cores) {out['max_abs_err_bf16']:.3g} vs blocked, "
+          f"{out['max_abs_err_bf16_vs_ref']:.3g} vs attention_ref. Kernel bf16 "
+          f"{out['bf16_ms']:.4f} ms (device; {out['bf16_host_ms']:.4f} a call from the host), fp32 "
+          f"{out['ms']:.4f} ms; library call (scaled_dot_product_attention"
+          + (", is_causal" if window is None and not prefix_len else ", boolean mask")
+          + f") bf16 {out['bf16_library_ms']:.4f} ms (max abs diff "
+          f"{out['bf16_sdpa_max_abs_diff']:.3g}), fp32 {out['library_ms']:.4f} ms; plain (blocked, "
+          f"bf16) {out['plain_ms']:.2f} ms; bound bf16 {out['bf16_bound_ms']:.4f} ms "
+          f"({out['bf16_bound_by']}: {flops / 1e9:.2f} GFLOP over {pairs} kept pairs, "
+          f"{nbytes / 2e6:.1f} MB in bf16), fp32 {out['bound_ms']:.4f} ms; tensor cores "
+          f"{out['bf16_ms'] / out['bf16_bound_ms']:.2f}x bound, "
+          f"{out['bf16_ms'] / out['bf16_library_ms']:.2f}x SDPA")
+    del got, got_b, qb, kb, vb
+    return out
+
+
 def gemma3_attention(flash_attention, kref):
     """Phase 11 at head dim 256: gemma3_1b's attention shape, (1, 4096, 4,
-    256) with one kv head, causal and with its local window 512, on the
-    CUDA-core kernel (the tensor-core one stops at 128). fp32 against the
-    oracle at 2e-5; bf16 within one bf16 rounding of the plain version's
-    fp32 arithmetic. Times, bounds (fp32: the fp32 rate; bf16: the bf16
-    tensor rate, against the bytes) and SDPA's time on the same tensors.
-    Returns {case: numbers}."""
+    256) with one kv head, causal and with its local window 512
+    (``d256_case``). Returns {case: numbers}."""
     from repro_torch import configs
 
     g = configs.get_config("gemma3_1b")
     shape = (1, Z_PROMPT_LEN, g.num_heads, g.num_kv_heads, g.head_dim)
-    q, k, v = qkv_case(1, shape[1], shape[1], *shape[2:], seed=256)
     out = {}
     for window in (None, g.local_window):
-        before, wgmma = flash_attention.LAUNCHES.value, flash_attention.WGMMA_LAUNCHES.value
-        got = flash_attention.flash_attention_cuda(q, k, v, window=window)
-        torch.cuda.synchronize()
-        check(flash_attention.LAUNCHES.value == before + 1
-              and flash_attention.WGMMA_LAUNCHES.value == wgmma,
-              f"D = 256 window {window}: one CUDA-core launch")
-        want = kref.attention_ref(q, k, v, window=window)
-        check(torch.allclose(got, want, rtol=2e-5, atol=2e-5),
-              f"D = 256 fp32 window {window} within 2e-5 of attention_ref")
-        err = float((got - want).abs().max())
-        qb, kb, vb = (t.bfloat16() for t in (q, k, v))
-        got_b = flash_attention.flash_attention_cuda(qb, kb, vb, window=window)
-        torch.cuda.synchronize()
-        check(flash_attention.WGMMA_LAUNCHES.value == wgmma, "D = 256 bf16 stays off the tensor cores")
-        want_b = kref.flash_attention_blocked(qb, kb, vb, window=window)  # fp32 arithmetic here
-        check(torch.allclose(got_b.float(), want_b.float(), rtol=2 ** -7, atol=2 ** -9),
-              f"D = 256 bf16 window {window} within one bf16 rounding of flash_attention_blocked")
-        err_b = float((got_b.float() - want_b.float()).abs().max())
-        del want, want_b
-        ms = cuda_ms(lambda: flash_attention.flash_attention_cuda(q, k, v, window=window), 5)
-        ms_b = cuda_ms(lambda: flash_attention.flash_attention_cuda(qb, kb, vb, window=window), 5)
-        pairs = attn_pairs(shape[1], window) * shape[2]  # a kept pair and query head
-        flops = 4 * g.head_dim * pairs
-        nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, got))
-        bound = max(nbytes / HBM_BYTES_PER_S, flops / FP32_OPS_PER_S) * 1e3
-        bound_b = max(nbytes / 2 / HBM_BYTES_PER_S, flops / BF16_OPS_PER_S) * 1e3
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        if window is None:
-            sdpa = functools.partial(torch.nn.functional.scaled_dot_product_attention, qt, kt, vt,
-                                     is_causal=True, enable_gqa=True)
-        else:
-            i = torch.arange(shape[1], device=q.device)
-            keep = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
-            sdpa = functools.partial(torch.nn.functional.scaled_dot_product_attention, qt, kt, vt,
-                                     attn_mask=keep, enable_gqa=True)
-        sdpa_err = float((sdpa().transpose(1, 2) - got).abs().max())
-        lib_ms = cuda_ms(sdpa, 5)
         name = "causal" if window is None else f"window {window}"
-        print(f"gemma3_1b attention {shape[:3] + shape[4:]} kv {shape[3]} {name}: fp32 max abs err "
-              f"{err:.3g} vs attention_ref, bf16 {err_b:.3g} vs blocked; kernel fp32 {ms:.4f} ms, "
-              f"bf16 {ms_b:.4f} ms; bound fp32 {bound:.4f} ms, bf16 {bound_b:.4f} ms (operations: "
-              f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB in fp32); library call "
-              f"(scaled_dot_product_attention, fp32) {lib_ms:.4f} ms (max abs diff {sdpa_err:.3g}); "
-              f"fp32 {ms / bound:.1f}x bound")
-        out[name] = dict(ms=ms, bf16_ms=ms_b, bound_ms=bound, bf16_bound_ms=bound_b,
-                         library_ms=lib_ms, max_abs_err=err, max_abs_err_bf16=err_b)
-        del got, got_b, qb, kb, vb, qt, kt, vt, sdpa
+        out[name] = d256_case(flash_attention, kref, f"gemma3_1b attention, {name},", shape,
+                              window=window)
     return out
 
 
@@ -556,45 +607,68 @@ def moe_drops(cfg, params, prompts, prefill, moe):
 def real_layer0_attention(flash_attention, kref, model_mod, attention_mod, cfg, params, batch):
     """Phases 21 and 22: layer 0's q, k and v from the model's own
     ``_attn_qkv`` on a full-width prompt, through ``flash_attention_cuda``
-    as ``blocked_attention`` calls it (q scaled in bf16, scale 1): one
-    tensor-core launch,
-    held to ``flash_attention_blocked`` (its bf16 arithmetic) within one
-    bf16 rounding (rtol 2**-7, atol 1e-4 of the largest |out|); its time,
-    bound and SDPA's time. Returns the numbers."""
+    as ``blocked_attention`` calls it (q scaled in bf16, scale 1, the
+    prefix-LM mask over PaliGemma's patches): one tensor-core launch, held
+    to ``flash_attention_blocked`` (its bf16 arithmetic) within one bf16
+    rounding (rtol 2**-7, atol 1e-4 of the largest |out|; PaliGemma's
+    prefix-LM layer, atol 2**-8 as in phase 11); its time (per
+    call from the host, and device time in a CUDA graph), bound and SDPA's
+    time. Returns the numbers."""
     x, prefix_len = model_mod._embed_inputs(cfg, params, batch)
     s = x.shape[1]
     window = cfg.layer_windows(s)[0]
-    check(prefix_len == 0 and window >= s, f"{cfg.name} layer 0: causal, no window, no prefix")
+    check(window >= s and prefix_len == cfg.num_patches,
+          f"{cfg.name} layer 0: causal, no window, prefix {cfg.num_patches}")
     positions = torch.arange(s, device=x.device)[None]
     q, k, v = model_mod._attn_qkv(x, {k: v[0] for k, v in params["layers"].items()}, cfg,
                                   positions)
     real = (q * attention_mod._scale(q), k, v)  # as blocked_attention hands them over
-    scale = 1.0
-    before = flash_attention.WGMMA_LAUNCHES.value
-    got = flash_attention.flash_attention_cuda(*real, scale=scale)
+    kw = dict(scale=1.0, prefix_len=prefix_len)
+    before, simt = flash_attention.WGMMA_LAUNCHES.value, flash_attention.LAUNCHES.value
+    got = flash_attention.flash_attention_cuda(*real, **kw)
     torch.cuda.synchronize()
-    check(flash_attention.WGMMA_LAUNCHES.value == before + 1,
+    check(flash_attention.WGMMA_LAUNCHES.value == before + 1
+          and flash_attention.LAUNCHES.value == simt,
           f"{cfg.name} layer 0's attention takes the tensor cores")
-    want = kref.flash_attention_blocked(*real, scale=scale)
+    want = kref.flash_attention_blocked(*real, **kw)
     omax = float(want.float().abs().max())
-    check(torch.allclose(got.float(), want.float(), rtol=2 ** -7, atol=1e-4 * omax),
-          f"{cfg.name} layer 0's attention within one bf16 rounding of the blocked plain version")
-    err = float((got.float() - want.float()).abs().max())
-    ms = cuda_ms(lambda: flash_attention.flash_attention_cuda(*real, scale=scale), 10)
-    sdpa = functools.partial(torch.nn.functional.scaled_dot_product_attention,
-                             *(t.transpose(1, 2) for t in real), is_causal=True, scale=scale,
-                             enable_gqa=True)
+    diff = (got.float() - want.float()).abs()
+    err = float(diff.max())
+    # the bar: one bf16 rounding, rtol 2**-7 and an atol of 1e-4 of max |out|
+    # (granite-moe, MusicGen: max |out| 3.3 and 4.8); PaliGemma's outputs are
+    # small (max |out| about 0.6) against its values (|v| up to about 5),
+    # and a probability rounded the other way moves an output by 2**-8 of
+    # its value, so it takes phase 11's atol for the tensor-core kernel, 2**-8
+    atol = 2 ** -8 if prefix_len else 1e-4 * omax
+    over_want = int((diff > 2 ** -7 * want.float().abs() + 1e-4 * omax).sum())
+    if not bool((diff <= 2 ** -7 * want.float().abs() + atol).all()):
+        print(f"{cfg.name} layer 0: max abs err {err}, max |out| {omax}")
+        check(False, f"{cfg.name} layer 0's attention within one bf16 rounding of the blocked "
+                     f"plain version (rtol 2**-7, atol {atol:.3g})")
+    call = functools.partial(flash_attention.flash_attention_cuda, *real, **kw)
+    ms, device_ms = cuda_ms(call, 10), graph_ms(call, 10)
+    sdpa = sdpa_call(*real, prefix_len=prefix_len, scale=1.0)
     sdpa_err = float((sdpa().transpose(1, 2).float() - want.float()).abs().max())
-    lib_ms = cuda_ms(sdpa, 10)
-    bound, bound_by, nbytes, flops, _ = attn_bound(*real, got)
+    lib_ms, lib_device_ms = cuda_ms(sdpa, 10), graph_ms(sdpa, 10)
+    _, _, h, d = real[0].shape
+    pairs = kept_pairs(s, prefix_len) if prefix_len else s * (s + 1) // 2
+    flops = 4 * h * d * pairs
+    nbytes = sum(t.numel() * t.element_size() for t in (*real, got))
+    bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_OPS_PER_S) * 1e3
+    bound_by = "bytes" if nbytes / HBM_BYTES_PER_S > flops / BF16_OPS_PER_S else "operations"
     print(f"{cfg.name} layer 0 attention, real q/k/v " + ", ".join(
-        f"{tuple(t.shape)}" for t in real) + f" bf16, q pre-scaled: max abs err {err} (max |out| "
-          f"{omax}) vs blocked; tensor-core kernel {ms:.4f} ms, library call "
-          f"(scaled_dot_product_attention, is_causal) {lib_ms:.4f} ms (max abs diff {sdpa_err}); "
-          f"bound {bound:.4f} ms ({bound_by}: {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB); "
+        f"{tuple(t.shape)}" for t in real) + f" bf16, q pre-scaled"
+          + (f", prefix {prefix_len}" if prefix_len else "") + f": max abs err {err} (max |out| "
+          f"{omax}; {over_want} of {diff.numel()} beyond 2**-7 of |want|) vs blocked; "
+          f"tensor-core kernel {ms:.4f} ms (device {device_ms:.4f}), library call "
+          f"(scaled_dot_product_attention, {'boolean mask' if prefix_len else 'is_causal'}) "
+          f"{lib_ms:.4f} ms (device {lib_device_ms:.4f}; max abs diff {sdpa_err}); bound "
+          f"{bound:.4f} ms ({bound_by}: {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB); "
           f"{ms / bound:.2f}x bound")
-    return dict(shape=list(real[0].shape), kv_heads=real[1].shape[2], max_abs_err=err,
-                max_abs_out=omax, ms=ms, bound_ms=bound, bound_by=bound_by, library_ms=lib_ms)
+    return dict(shape=list(real[0].shape), kv_heads=real[1].shape[2], prefix_len=prefix_len,
+                max_abs_err=err, max_abs_out=omax, beyond_rtol_of_want=over_want, ms=ms,
+                device_ms=device_ms, bound_ms=bound, bound_by=bound_by, library_ms=lib_ms,
+                library_device_ms=lib_device_ms)
 
 
 def kept_pairs(s: int, prefix_len: int) -> int:
@@ -604,62 +678,13 @@ def kept_pairs(s: int, prefix_len: int) -> int:
 
 
 def prefix_attention(flash_attention, kref, pcfg, s):
-    """Phase 22: the prefix-LM mode of the CUDA-core kernel at PaliGemma's
-    prefill shape, (1, s, 8, 256) with one kv head and its 256-patch
-    prefix: fp32 within 2e-5 of ``attention_ref(prefix_len=...)``, bf16
-    within one bf16 rounding of ``flash_attention_blocked`` (its fp32
-    arithmetic at D = 256); times, bounds (fp32: the fp32 rate; bf16: the
-    bf16 tensor rate, against the bytes) and SDPA's time with the same mask
-    as an explicit boolean tensor. Returns the numbers."""
-    h, kv, d, pre = pcfg.num_heads, pcfg.num_kv_heads, pcfg.head_dim, pcfg.num_patches
-    q, k, v = qkv_case(1, s, s, h, kv, d, seed=pre)
-    before, wgmma = flash_attention.LAUNCHES.value, flash_attention.WGMMA_LAUNCHES.value
-    got = flash_attention.flash_attention_cuda(q, k, v, prefix_len=pre)
-    qb, kb, vb = (t.bfloat16() for t in (q, k, v))
-    got_b = flash_attention.flash_attention_cuda(qb, kb, vb, prefix_len=pre)
-    torch.cuda.synchronize()
-    check(flash_attention.LAUNCHES.value == before + 2
-          and flash_attention.WGMMA_LAUNCHES.value == wgmma,
-          "prefix-LM attention: two CUDA-core launches (fp32, bf16), none on the tensor cores")
-    want = kref.attention_ref(q, k, v, prefix_len=pre)
-    check(torch.allclose(got, want, rtol=2e-5, atol=2e-5),
-          f"prefix-LM fp32 within 2e-5 of attention_ref(prefix_len={pre})")
-    err = float((got - want).abs().max())
-    causal_gap = float((got - kref.attention_ref(q, k, v)).abs().max())
-    check(causal_gap > 1e-3, "the prefix changes the result (not plain causal)")
-    want_b = kref.flash_attention_blocked(qb, kb, vb, prefix_len=pre)  # fp32 arithmetic at D = 256
-    check(torch.allclose(got_b.float(), want_b.float(), rtol=2 ** -7, atol=2 ** -9),
-          "prefix-LM bf16 within one bf16 rounding of flash_attention_blocked")
-    err_b = float((got_b.float() - want_b.float()).abs().max())
-    del want, want_b
-    ms = cuda_ms(lambda: flash_attention.flash_attention_cuda(q, k, v, prefix_len=pre), 10)
-    ms_b = cuda_ms(lambda: flash_attention.flash_attention_cuda(qb, kb, vb, prefix_len=pre), 10)
-    plain_ms = cuda_ms(lambda: kref.flash_attention_blocked(qb, kb, vb, prefix_len=pre), 2)
-    pairs = kept_pairs(s, pre) * h
-    flops = 4 * d * pairs
-    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, got))
-    bound = max(nbytes / HBM_BYTES_PER_S, flops / FP32_OPS_PER_S) * 1e3
-    bound_b = max(nbytes / 2 / HBM_BYTES_PER_S, flops / BF16_OPS_PER_S) * 1e3
-    i = torch.arange(s, device=q.device)
-    keep = (i[None, :] <= i[:, None]) | (i[None, :] < pre)
-    lib = {}
-    for name, (a, b, c), out in (("fp32", (q, k, v), got), ("bf16", (qb, kb, vb), got_b)):
-        sdpa = functools.partial(torch.nn.functional.scaled_dot_product_attention,
-                                 *(t.transpose(1, 2) for t in (a, b, c)), attn_mask=keep,
-                                 enable_gqa=True)
-        diff = float((sdpa().transpose(1, 2).float() - out.float()).abs().max())
-        lib[name] = (cuda_ms(sdpa, 10), diff)
-    print(f"paligemma_3b prefill attention (1, {s}, {h}, {d}) kv {kv}, prefix {pre}: fp32 max abs "
-          f"err {err:.3g} vs attention_ref (plain causal would differ by {causal_gap:.3g}), bf16 "
-          f"{err_b:.3g} vs blocked; kernel fp32 {ms:.4f} ms, bf16 {ms_b:.4f} ms; plain (blocked, "
-          f"bf16) {plain_ms:.4f} ms; bound fp32 {bound:.4f} ms, bf16 {bound_b:.4f} ms (operations: "
-          f"{flops / 1e9:.2f} GFLOP over {pairs} kept pairs, {nbytes / 1e6:.1f} MB in fp32); library "
-          f"call (scaled_dot_product_attention, boolean mask) fp32 {lib['fp32'][0]:.4f} ms (max abs "
-          f"diff {lib['fp32'][1]:.3g}), bf16 {lib['bf16'][0]:.4f} ms (max abs diff "
-          f"{lib['bf16'][1]:.3g}); fp32 {ms / bound:.1f}x bound")
-    return dict(ms=ms, bf16_ms=ms_b, plain_ms=plain_ms, bound_ms=bound, bf16_bound_ms=bound_b,
-                library_ms=lib["fp32"][0], bf16_library_ms=lib["bf16"][0], max_abs_err=err,
-                max_abs_err_bf16=err_b)
+    """Phase 22: the prefix-LM mask at PaliGemma's prefill shape, (1, s, 8,
+    256) with one kv head and its 256-patch prefix (``d256_case``: fp32 on
+    the CUDA-core kernel, bf16 on the tensor-core one). Returns the
+    numbers."""
+    shape = (1, s, pcfg.num_heads, pcfg.num_kv_heads, pcfg.head_dim)
+    return d256_case(flash_attention, kref, f"paligemma_3b prefill attention, prefix "
+                     f"{pcfg.num_patches},", shape, prefix_len=pcfg.num_patches)
 
 
 def lm_prefill_decode(cfg, params, batch, prefill, decode_step, *, launches, silent, seed):
@@ -1501,6 +1526,29 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps: int) -> float:
+    """Mean device milliseconds per call: ``reps`` calls captured in one
+    CUDA graph and replayed between CUDA events, after a warm-up call and a
+    warm-up replay, so that the host's time to issue a call is not in it
+    (the calls of a short kernel issue slower than the card runs them)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / reps
+    del graph
+    return ms
+
+
 def random_case(h, w, seed):
     """The marker/mask cases of tests/test_kernel_morph_recon.py."""
     rng = np.random.default_rng(seed)
@@ -1584,7 +1632,7 @@ def main() -> int:
         print(f"build seconds: {build.seconds if build.seconds is not None else 'cached'} "
               f"(the builds started {time.perf_counter() - t_build:.3f} s ago)")
         for ln in build.ptxas_info.splitlines():
-            if any(w in ln for w in ("registers", "Compiling entry", "smem", "spill")):
+            if any(w in ln for w in ("registers", "Compiling entry", "smem", "spill", "warning")):
                 print(ln.strip())
 
     # -- 2. build ---------------------------------------------------------
@@ -1853,6 +1901,17 @@ def main() -> int:
           "tensor-core kernel's shared memory as wgmma_shared_memory_bytes says")
     print(f"dynamic shared memory a CTA at D = {zcfg.head_dim}: {built_smem} bytes "
           f"({flash_attention.WGMMA_THREADS} threads)")
+    wgmma_ptxas = builds["flash_attention_wgmma"].result().ptxas_info  # "" if already built
+    spilled = [ln.strip() for ln in wgmma_ptxas.splitlines()
+               if int((re.search(r"(\d+) bytes spill stores", ln) or [0, 0])[1])]
+    check(not spilled, f"no instance of the tensor-core kernel spills: {spilled}")
+    wlib = flash_attention.build_wgmma().lib
+    for d in range(16, flash_attention.WGMMA_MAX_HEAD_DIM + 1, 16):
+        check(wlib.flash_attention_wgmma_smem(d) == flash_attention.wgmma_shared_memory_bytes(d)
+              <= 232_448 and wlib.flash_attention_wgmma_key_tile(d) == kref.wgmma_key_tile(d),
+              f"tensor-core kernel's shared memory and key tile at D = {d} as the Python says")
+    print(f"tensor-core kernel at D = 256: {wlib.flash_attention_wgmma_smem(256)} bytes, "
+          f"{wlib.flash_attention_wgmma_key_tile(256)}-key tiles (formulas equal for D = 16..256)")
 
     # -- 11. flash_attention vs its plain versions -------------------------
     phase("11 flash_attention vs plain versions (fp32 on the CUDA cores, rtol = atol = 2e-5; "
@@ -1930,6 +1989,22 @@ def main() -> int:
         print(f"bf16 D = {d} (1,300,8,4) window 120 on the CUDA cores: max abs err vs blocked "
               f"{errs[0]:.3g}, vs attention_ref {errs[1]:.3g}")
     del cases
+    for d in (144, 192, 256):  # the 64-key tiles, with and without a prefix
+        q, k, v = (t.bfloat16() for t in qkv_case(1, 230, 230, 4, 1, d, seed=d))
+        for window, prefix_len in ((None, 0), (64, 0), (None, 100), (48, 150)):
+            before = flash_attention.WGMMA_LAUNCHES.value
+            got = flash_attention.flash_attention_cuda(q, k, v, window=window,
+                                                       prefix_len=prefix_len)
+            torch.cuda.synchronize()
+            check(flash_attention.WGMMA_LAUNCHES.value == before + 1,
+                  f"one tensor-core launch for bf16 D = {d}")
+            want = kref.flash_attention_blocked(q, k, v, window=window, prefix_len=prefix_len)
+            check(torch.allclose(got.float(), want.float(), rtol=2 ** -7, atol=2 ** -8),
+                  f"bf16 D = {d} window {window} prefix {prefix_len} within one bf16 rounding of "
+                  f"flash_attention_blocked")
+            fa_bf16_err = max(fa_bf16_err, float((got.float() - want.float()).abs().max()))
+    print(f"bf16 D = 144, 192, 256 (1,230,4,1), causal, window 64, prefix 100, window 48 with "
+          f"prefix 150, on the tensor cores: max abs err vs blocked (all bf16 cases) {fa_bf16_err}")
     d256 = gemma3_attention(flash_attention, kref)
     torch.cuda.empty_cache()
 
@@ -2060,12 +2135,17 @@ def main() -> int:
             "flash_attention_wgmma": flash_attention.WGMMA_LAUNCHES}
     others = {"morph_recon": morph_recon.LAUNCHES, "ssm_scan": ssm_scan.LAUNCHES}
     phase("20 SA-serve study: run_sa_serve on gemma3_1b at full width (head dim 256: attention "
-          "on the CUDA cores)")
+          "on the tensor cores)")
     gcfg, gparams, _, out = transformer_study(
         "gemma3_1b", configs, init_params, sa_serve, cache_bytes=109_477_888,
-        peak_bytes=246_325_376, launches={"flash_attention": (attn["flash_attention"], 1)},
-        silent={"flash_attention_wgmma": attn["flash_attention_wgmma"], **others})
-    simt_by_path = {"gemma3_serve": out["launches"]["flash_attention"]}
+        peak_bytes=246_325_376,
+        launches={"flash_attention_wgmma": (attn["flash_attention_wgmma"], 1)},
+        silent={"flash_attention": attn["flash_attention"], **others})
+    # the CUDA-core kernel takes fp32 and bf16 head dims that are no multiple
+    # of 16: no model path gives it either, so its count stays 0 on each
+    simt_by_path = {"gemma3_serve": attn["flash_attention"].value}
+    wgmma_by_path = {"zamba2_serve": fa_launches,
+                     "gemma3_serve": out["launches"]["flash_attention_wgmma"]}
     del gparams
     torch.cuda.empty_cache()
 
@@ -2077,8 +2157,8 @@ def main() -> int:
         peak_bytes=454_754_432,
         launches={"flash_attention_wgmma": (attn["flash_attention_wgmma"], 1)},
         silent={"flash_attention": attn["flash_attention"], **others})
-    wgmma_by_path = {"zamba2_serve": fa_launches,
-                     "granite_moe_serve": out["launches"]["flash_attention_wgmma"]}
+    wgmma_by_path["granite_moe_serve"] = out["launches"]["flash_attention_wgmma"]
+    simt_by_path["granite_moe_serve"] = attn["flash_attention"].value
     moe_drops(mcfg, mparams, mprompts, prefill, moe_mod)
     wgmma_real = {"granite_moe_1b_a400m": real_layer0_attention(
         flash_attention, kref, model_mod, attention_mod, mcfg, mparams,
@@ -2090,12 +2170,11 @@ def main() -> int:
     pcfg = configs.get_config("paligemma_3b")
     p_text = 1024
     phase(f"22 prefill and {GEN_LEN} decode steps: paligemma_3b ({pcfg.num_patches} patches + "
-          f"{p_text} tokens, prefix-LM attention on the CUDA cores) and musicgen_medium "
-          f"({Z_PROMPT_LEN} frames, attention on the tensor cores) at full width")
+          f"{p_text} tokens, prefix-LM attention) and musicgen_medium ({Z_PROMPT_LEN} frames) at "
+          f"full width, attention on the tensor cores")
     d256_prefix = prefix_attention(flash_attention, kref, pcfg, pcfg.num_patches + p_text)
     torch.cuda.empty_cache()
-    for arch, s_text, kernel in (("paligemma_3b", p_text, "flash_attention"),
-                                 ("musicgen_medium", Z_PROMPT_LEN, "flash_attention_wgmma")):
+    for arch, s_text in (("paligemma_3b", p_text), ("musicgen_medium", Z_PROMPT_LEN)):
         cfg = configs.get_config(arch)
         t0 = time.perf_counter()
         params = init_params(cfg, 0)
@@ -2109,12 +2188,12 @@ def main() -> int:
         batch = lm_batch(cfg, s_text, seed=0, device="cuda")
         counts = lm_prefill_decode(
             cfg, params, batch, prefill, decode_step,
-            launches={kernel: (attn[kernel], cfg.num_layers)},
-            silent={**{k: c for k, c in attn.items() if k != kernel}, **others}, seed=1)
-        (simt_by_path if kernel == "flash_attention" else wgmma_by_path)[arch] = counts[kernel]
-        if kernel == "flash_attention_wgmma":
-            wgmma_real[arch] = real_layer0_attention(flash_attention, kref, model_mod,
-                                                     attention_mod, cfg, params, batch)
+            launches={"flash_attention_wgmma": (attn["flash_attention_wgmma"], cfg.num_layers)},
+            silent={"flash_attention": attn["flash_attention"], **others}, seed=1)
+        wgmma_by_path[arch] = counts["flash_attention_wgmma"]
+        simt_by_path[arch] = attn["flash_attention"].value
+        wgmma_real[arch] = real_layer0_attention(flash_attention, kref, model_mod, attention_mod,
+                                                 cfg, params, batch)
         del params
         torch.cuda.empty_cache()
 
@@ -2185,6 +2264,8 @@ def main() -> int:
         "bound_by": fa_bound_by,
         "library_ms": fa_lib_ms,
         "layer0_by_model": wgmma_real,
+        "gemma3_d256": d256,
+        "paligemma_prefix": d256_prefix,
     }, {
         "name": "flash_attention",
         "route": "cuda",
@@ -2199,8 +2280,11 @@ def main() -> int:
         "bound_ms": fa_bound_ms,
         "bound_by": fa_bound_by,
         "library_ms": fa_lib_ms,
-        "gemma3_d256": d256,
-        "paligemma_prefix": d256_prefix,
+        "d256_fp32": {f"{model} {case}": {k: nums[k] for k in ("ms", "bound_ms", "library_ms",
+                                                              "max_abs_err")}
+                      for model, cases in (("gemma3_1b", d256),
+                                           ("paligemma_3b", {"prefix": d256_prefix}))
+                      for case, nums in cases.items()},
     }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,19 @@
 // Causal, sliding-window, prefix-LM, grouped-query attention forward pass
-// (FlashAttention-2's streaming softmax) for Hopper (sm_90a).
+// (FlashAttention-2's streaming softmax) for Hopper (sm_90a), on the CUDA
+// cores in IEEE fp32.
 //
-// Replaces the Pallas TPU kernel of src/repro/kernels/flash_attention.py:
-// `_fa_kernel` and its wrapper `flash_attention_pallas`.
+// Replaces, with flash_attention_wgmma.cu, the Pallas TPU kernel of
+// src/repro/kernels/flash_attention.py: `_fa_kernel` and its wrapper
+// `flash_attention_pallas`.
+//
+// Which inputs it takes (kernels/flash_attention.py, the wrapper's
+// dispatch): fp32, whose 2e-5 bar against the oracle only fp32 products
+// meet, and bf16 with a head dim that is no multiple of 16, with or
+// without a prefix. Every bf16 input with D a multiple of 16 up to 256,
+// prefix-LM included (gemma3's and PaliGemma's head dim 256, every model
+// config's attention), takes the tensor-core kernel of
+// flash_attention_wgmma.cu, which rounds the probabilities to bf16 as the
+// JAX model does; this kernel keeps them in fp32.
 //
 // What it computes, for q (B,Sq,H,D) and k, v (B,Sk,KV,D), all fp32 or all
 // bf16, read in place by strides, with query head h reading kv head
@@ -36,8 +47,7 @@
 // with the dense oracle to 2e-5. Shared memory is (3·64·(D|1) + 64·65)·4
 // bytes, 78,848 at D = 80: dynamic, above the 48 KB static limit, so two
 // blocks fit an SM. In the prefix mode every block also visits the tiles
-// that start inside the prefix, past its causal exit. D goes up to 256
-// (gemma3's and PaliGemma's head dim):
+// that start inside the prefix, past its causal exit. D goes up to 256:
 // 16 output columns a thread, 214,016 bytes of shared memory, one block an
 // SM, under the 232,448-byte opt-in. ptxas (-Xptxas -v, for sm_90a)
 // gives the 16-column instances 128 registers a thread and no spill; the
@@ -47,13 +57,12 @@
 //
 // What bounds it on this card. Causal attention needs 4·D flops for each
 // (query, key) pair it keeps, per head, and reads q, k, v and writes the
-// output once: at B=1, S=4096, H=32, D=80 in bf16 that is 85.9 GFLOP at the
-// 989 TFLOP/s bf16 tensor rate (0.087 ms) against 83.9 MB at 3.35 TB/s
-// (0.025 ms), so operations bound it, with the 268 M exponentials at the
-// SFU rate close behind. This simple design runs its products on the fp32
-// CUDA cores, from shared memory, at a small fraction of that:
-// tensor-core (wgmma) tiles fed by TMA, and fewer exponentials, are later
-// work.
+// output once: at B=1, S=4096, H=4, D=256 in fp32 (gemma3's shape, one kv
+// head) that is 34.4 GFLOP at the 67 TFLOP/s fp32 rate (0.513 ms) against
+// 42 MB at 3.35 TB/s (0.013 ms), so operations bound it. This simple
+// design runs its products on the fp32 CUDA cores, from shared memory, at
+// a fraction of that rate; the inputs that can use the tensor cores (bf16
+// at D a multiple of 16) go to flash_attention_wgmma.cu instead.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -4,16 +4,20 @@ Hopper, their builds, launch counts and wrappers.
 
 - ``csrc/flash_attention_wgmma.cu``, the tensor-core kernel (``wgmma`` fed
   by TMA), takes bf16 inputs with a head dim that is a multiple of 16 and at
-  most 128 (:func:`flash_attention_wgmma`);
-- ``csrc/flash_attention.cu``, the CUDA-core kernel in IEEE fp32, takes
-  everything else: fp32 inputs, whose reference bar of 2e-5 only fp32
-  products meet, bf16 with any other head dim, and every prefix-LM call
-  (``prefix_len > 0``, PaliGemma's bidirectional image prefix), whatever the
-  dtype and head dim (:func:`flash_attention_simt`).
+  most 256, with or without a prefix-LM mask (PaliGemma's bidirectional
+  image prefix): every bf16 attention of the models, gemma3's and
+  PaliGemma's head dim 256 included (:func:`flash_attention_wgmma`). Its
+  key tile is 128 keys up to D = 128 and 64 above (:func:`wgmma_key_tile`),
+  so that D = 256 fits the shared memory of a block;
+- ``csrc/flash_attention.cu``, the CUDA-core kernel in IEEE fp32, takes the
+  rest: fp32 inputs, whose reference bar of 2e-5 only fp32 products meet,
+  and bf16 with a head dim that is no multiple of 16, with its own
+  prefix-LM mask (:func:`flash_attention_simt`).
 
-:func:`flash_attention_cuda` chooses between them by ``prefix_len`` and
-:func:`uses_tensor_cores` (dtype and head dim); it is a dispatch, not a
-fallback. The kernels replace the Pallas TPU kernel of
+:func:`flash_attention_cuda` chooses between them by :func:`uses_tensor_cores`
+(dtype and head dim); it is a dispatch, not a fallback: a bf16 input the
+tensor-core kernel should take but cannot (a stride TMA cannot load, a
+failed build or launch) raises. The kernels replace the Pallas TPU kernel of
 ``repro.kernels.flash_attention`` (``_fa_kernel``, ``flash_attention_pallas``);
 the sources say how they are laid out and what bounds them. They are built by
 :mod:`repro_torch.kernels.nvcc` at first use. A missing ``nvcc``, a failed
@@ -38,15 +42,16 @@ import torch
 
 from repro_torch.kernels import nvcc
 from repro_torch.kernels.nvcc import Build, LaunchCount
-from repro_torch.kernels.ref import attention_ref, flash_attention_blocked, uses_tensor_cores
+from repro_torch.kernels.ref import (attention_ref, flash_attention_blocked, uses_tensor_cores,
+                                     wgmma_key_tile)
 
 __all__ = ["build", "build_wgmma", "LAUNCHES", "WGMMA_LAUNCHES", "flash_attention_cuda",
            "flash_attention_simt", "flash_attention_wgmma", "uses_tensor_cores",
-           "shared_memory_bytes", "wgmma_shared_memory_bytes", "tma_layout_error",
-           "attention_ref", "flash_attention_blocked"]
+           "wgmma_key_tile", "shared_memory_bytes", "wgmma_shared_memory_bytes",
+           "tma_layout_error", "attention_ref", "flash_attention_blocked"]
 
 MAX_HEAD_DIM = 256  # the CUDA-core kernel: sixteen output columns a thread (csrc/flash_attention.cu)
-WGMMA_MAX_HEAD_DIM = 128  # the tensor-core kernel's tiles (csrc/flash_attention_wgmma.cu)
+WGMMA_MAX_HEAD_DIM = 256  # the tensor-core kernel's tiles (csrc/flash_attention_wgmma.cu)
 WGMMA_THREADS = 384  # two consumer warpgroups and a producer (csrc/flash_attention_wgmma.cu)
 
 
@@ -60,15 +65,17 @@ def shared_memory_bytes(d: int) -> int:
 
 def wgmma_shared_memory_bytes(d: int) -> int:
     """Dynamic shared memory a CTA of the tensor-core kernel takes at head
-    dim ``d``: the q tile (128 rows) and a ring of K and V tiles (128 rows),
-    three stages deep up to D = 112 and two above, in 16-column slabs of
-    32-byte rows; an mbarrier for q and two a stage; and 1 KB of slack to
-    align the tiles to 1024 bytes (csrc/flash_attention_wgmma.cu,
-    ``smem_bytes``; the library's ``flash_attention_wgmma_smem`` gives the
-    source's own number)."""
+    dim ``d``: the q tile (128 rows) and a ring of K and V tiles of
+    :func:`wgmma_key_tile` rows (128 up to D = 128, 64 above), three stages
+    deep up to D = 112 and two above (the bytes do not depend on the slabs,
+    64 columns of 128-byte rows where D is a multiple of 64, else 16 of 32);
+    an mbarrier for q and four a stage (full and empty, for K and for V);
+    and 1 KB of slack to align the tiles to 1024 bytes
+    (csrc/flash_attention_wgmma.cu, ``smem_bytes``; the library's
+    ``flash_attention_wgmma_smem`` gives the source's own number)."""
     slabs = d // 16
     stages = 3 if slabs <= 7 else 2
-    return slabs * (128 * 32 + 2 * stages * 128 * 32) + 8 * (1 + 2 * stages) + 1024
+    return slabs * (128 * 32 + 2 * stages * wgmma_key_tile(d) * 32) + 8 * (1 + 4 * stages) + 1024
 
 
 def tma_layout_error(t: torch.Tensor) -> Optional[str]:
@@ -122,12 +129,14 @@ def build_wgmma() -> Build:
     built = nvcc.build_library("flash_attention_wgmma")
     fn = built.lib.flash_attention_wgmma_fwd
     fn.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_float]
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_float]
         + [ctypes.c_void_p, ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
     built.lib.flash_attention_wgmma_smem.argtypes = (ctypes.c_int,)
     built.lib.flash_attention_wgmma_smem.restype = ctypes.c_longlong
+    built.lib.flash_attention_wgmma_key_tile.argtypes = (ctypes.c_int,)
+    built.lib.flash_attention_wgmma_key_tile.restype = ctypes.c_int
     return built
 
 
@@ -142,24 +151,23 @@ def flash_attention_cuda(
     prefix_len: int = 0, scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Attention on the card: the tensor-core kernel where
-    :func:`uses_tensor_cores` holds (bf16, D a multiple of 16 up to 128)
-    and there is no prefix, the CUDA-core kernel otherwise.
+    :func:`uses_tensor_cores` holds (bf16, D a multiple of 16 up to 256),
+    with or without a prefix, the CUDA-core kernel otherwise.
 
     q (B, Sq, H, D) and k, v (B, Sk, KV, D) in one dtype, float32 or
     bfloat16, on one CUDA device, with H a multiple of KV and D at most 256.
     ``q_offset`` is the absolute position of q's first row; with
     ``prefix_len`` > 0 a causal mask also keeps the keys before
-    ``prefix_len`` for every query (prefix-LM), which only the CUDA-core
-    kernel computes. The logits are scaled by ``scale``, 1/sqrt(D) when it
-    is None. Returns (B, Sq, H, D) in q's dtype. Launches once on the
-    current stream and does not synchronise.
+    ``prefix_len`` for every query (prefix-LM). The logits are scaled by
+    ``scale``, 1/sqrt(D) when it is None. Returns (B, Sq, H, D) in q's
+    dtype. Launches once on the current stream and does not synchronise.
     """
     _check(q, k, v, prefix_len)
-    if prefix_len or not uses_tensor_cores(q.dtype, q.shape[3]):
+    if not uses_tensor_cores(q.dtype, q.shape[3]):
         return flash_attention_simt(q, k, v, causal=causal, window=window, q_offset=q_offset,
                                     prefix_len=prefix_len, scale=scale)
     return flash_attention_wgmma(q, k, v, causal=causal, window=window, q_offset=q_offset,
-                                 scale=scale)
+                                 prefix_len=prefix_len, scale=scale)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, prefix_len: int = 0) -> None:
@@ -228,14 +236,12 @@ def flash_attention_wgmma(
     prefix_len: int = 0, scale: Optional[float] = None,
 ) -> torch.Tensor:
     """The tensor-core kernel, ``csrc/flash_attention_wgmma.cu``: bf16 with
-    D a multiple of 16 up to 128, laid out for TMA (:func:`tma_layout_error`),
-    without a prefix. Raises on anything else; it makes no copy. Its
+    D a multiple of 16 up to 256, laid out for TMA (:func:`tma_layout_error`),
+    with or without a prefix. Raises on anything else; it makes no copy. Its
     arithmetic is :func:`flash_attention_blocked`'s for such inputs:
-    probabilities rounded to bf16 before the P·V product."""
+    probabilities rounded to bf16 before the P·V product, a block of
+    :func:`wgmma_key_tile` keys at a time."""
     _check(q, k, v, prefix_len)
-    if prefix_len:
-        raise ValueError(f"the tensor-core kernel has no prefix-LM mask (prefix_len "
-                         f"{prefix_len}); flash_attention_simt computes it")
     bsz, sq, h, d = q.shape
     sk, kv = k.shape[1], k.shape[2]
     if not uses_tensor_cores(q.dtype, d):
@@ -253,7 +259,7 @@ def flash_attention_wgmma(
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             bsz, sq, sk, h, kv, d, int(bool(causal)), int(window is not None), int(window or 0),
-            int(q_offset), _scale_or_default(scale, d), ctypes.addressof(strides),
+            int(q_offset), int(prefix_len), _scale_or_default(scale, d), ctypes.addressof(strides),
             torch.cuda.current_stream().cuda_stream,
         )
         if err == -1:

@@ -47,7 +47,7 @@ def _nvcc() -> str:
 class Build(NamedTuple):
     lib: ctypes.CDLL
     seconds: Optional[float]  # None when the library was already built
-    ptxas_info: str  # nvcc's ``-Xptxas -v`` lines of this build, spill counts included
+    ptxas_info: str  # this build's ``-Xptxas -v`` lines and ptxas warnings, spills included
 
 
 def build_library(name: str) -> Build:
@@ -77,7 +77,7 @@ def build_library(name: str) -> Build:
         os.replace(tmp, target)
         seconds = time.perf_counter() - t0
         info = "\n".join(ln for ln in proc.stderr.splitlines()
-                         if "ptxas info" in ln or "spill" in ln)
+                         if "ptxas" in ln or "spill" in ln)
     return Build(ctypes.CDLL(str(target)), seconds, info)
 
 

@@ -31,6 +31,7 @@ __all__ = [
     "attention_ref",
     "flash_attention_blocked",
     "uses_tensor_cores",
+    "wgmma_key_tile",
 ]
 
 
@@ -491,14 +492,26 @@ def attention_ref(
 def uses_tensor_cores(dtype: torch.dtype, d: int) -> bool:
     """Whether attention on these inputs takes the tensor-core kernel (and
     its arithmetic): bf16 with a head dim that is a multiple of 16 up to
-    128. Everything else takes the CUDA-core kernel in IEEE fp32."""
-    return dtype == torch.bfloat16 and d % 16 == 0 and 16 <= d <= 128
+    256, with or without a prefix. Everything else (fp32, other head dims)
+    takes the CUDA-core kernel in IEEE fp32."""
+    return dtype == torch.bfloat16 and d % 16 == 0 and 16 <= d <= 256
+
+
+def wgmma_key_tile(d: int) -> int:
+    """The keys of one K/V tile of the tensor-core kernel at head dim ``d``:
+    128 up to D = 128, 64 above, where a 128-key ring would not fit beside
+    the q tile (csrc/flash_attention_wgmma.cu, ``key_tile``; the library's
+    ``flash_attention_wgmma_key_tile`` gives the source's own number). Each
+    tile's probabilities are rounded to bf16 against the running max of the
+    tiles so far, so the plain version walks the same blocks."""
+    return 128 if d <= 128 else 64
 
 
 def flash_attention_blocked(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     causal: bool = True, window: Optional[int] = None, q_offset: int = 0,
-    prefix_len: int = 0, scale: Optional[float] = None, block_q: int = 128, block_k: int = 128,
+    prefix_len: int = 0, scale: Optional[float] = None, block_q: int = 128,
+    block_k: Optional[int] = None,
 ) -> torch.Tensor:
     """The TPU kernel's arithmetic, block by block: fp32 logits of
     ``q·scale`` (1/sqrt(D) when ``scale`` is None) and k, masked to -1e30 (``kpos < Sk``; ``kpos <= qpos`` or
@@ -514,17 +527,19 @@ def flash_attention_blocked(
     in :func:`attention_ref`, whatever the block size.
 
     Where :func:`uses_tensor_cores` holds (bf16, D a multiple of 16 up to
-    128) it repeats the tensor-core kernel's arithmetic instead, which is the
+    256) it repeats the tensor-core kernel's arithmetic instead, which is the
     JAX model's: the logits are q·k of the bf16 values in fp32, times the
     scale in fp32, and the probabilities are rounded to bf16 before the P·V
     product (the sum ``l`` keeps them in fp32). Each key block's
     probabilities are rounded against the running max of the blocks so far,
-    so this result depends on ``block_k``; the default, 128, is the kernel's
-    key tile. Otherwise the CUDA-core kernel's: ``q·scale`` in fp32 and the
-    probabilities in fp32."""
+    so this result depends on ``block_k``; the default (None) is the
+    kernel's key tile at this D, :func:`wgmma_key_tile`. Otherwise the
+    CUDA-core kernel's: ``q·scale`` in fp32 and the probabilities in fp32."""
     b, sq, h, d = q.shape
     sk, kv = k.shape[1], k.shape[2]
     rep = h // kv
+    if block_k is None:
+        block_k = wgmma_key_tile(d)
     bq, bk = min(block_q, sq), min(block_k, sk)
     scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
     tensor_cores = uses_tensor_cores(q.dtype, d)

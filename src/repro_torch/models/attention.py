@@ -7,12 +7,15 @@ FlashAttention kernel of ``repro.kernels`` computes the same causal and
 windowed attention, and the port's hand-written kernels replace it).
 
 Prefill follows the tensors' device. A CUDA tensor goes to the hand-written
-attention kernels (:mod:`repro_torch.kernels.flash_attention`): bf16 q, k
-and v with a head dim up to 128 take the tensor-core one, the head dim 256
-of gemma3 and PaliGemma and every prefix-LM call (PaliGemma's image prefix)
-the CUDA-core one. A CPU tensor runs the JAX package's own streaming softmax
-over key chunks, with its bf16 operands and fp32 sums. Decode is plain
-PyTorch on either device, as the JAX package computes it.
+attention kernels (:mod:`repro_torch.kernels.flash_attention`): the model's
+bf16 q, k and v, at every head dim of the configs (64, 80, 128 and gemma3's
+and PaliGemma's 256) and with PaliGemma's prefix-LM mask, take the
+tensor-core one, which rounds the probabilities to bf16 before P·V as JAX
+does, a key tile at a time; only fp32 inputs and head dims that are no
+multiple of 16 would take the CUDA-core one. A CPU tensor runs the JAX
+package's own streaming softmax over key chunks, with its bf16 operands and
+fp32 sums. Decode is plain PyTorch on either device, as the JAX package
+computes it.
 """
 
 from __future__ import annotations

@@ -293,55 +293,64 @@ def test_cuda_kernel_bf16_other_head_dims(card, d):
 @pytest.mark.gpu
 def test_shared_memory_formulas_match_the_sources(card):
     """The Python formulas (used by the CPU tests) against the numbers the
-    built sources compute and ask the launch for."""
+    built sources compute and ask the launch for, and the tensor-core
+    kernel's key tile (where the plain version rounds P) against the
+    source's, at every head dim it takes; -1 for one it does not."""
     simt, wgmma = tkernel.build().lib, tkernel.build_wgmma().lib
     for d in range(1, tkernel.MAX_HEAD_DIM + 1):
         assert simt.flash_attention_smem(d) == tkernel.shared_memory_bytes(d), d
     for d in range(16, tkernel.WGMMA_MAX_HEAD_DIM + 1, 16):
         assert wgmma.flash_attention_wgmma_smem(d) == tkernel.wgmma_shared_memory_bytes(d), d
+        assert wgmma.flash_attention_wgmma_key_tile(d) == tkernel.wgmma_key_tile(d), d
+    for d in (8, 72, 272):
+        assert wgmma.flash_attention_wgmma_smem(d) == -1 == wgmma.flash_attention_wgmma_key_tile(d)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("d", [160, 192, 256])
 def test_cuda_kernel_head_dims_over_128(card, d):
-    """Head dims above the tensor-core kernel's 128 (gemma3's and
-    PaliGemma's 256) on the CUDA-core kernel: fp32 within 2e-5 of the
-    oracle, causal and windowed, with GQA; bf16 goes there by dispatch."""
+    """Head dims above 128 (gemma3's and PaliGemma's 256): fp32 on the
+    CUDA-core kernel within 2e-5 of the oracle, causal and windowed, with
+    GQA; bf16 on the tensor-core kernel by dispatch (64-key tiles), within
+    one bf16 rounding of the blocked version at the same key blocks and
+    2e-2 of the oracle."""
     t = _t(qkv(1, 200, 200, 4, 1, d, seed=d), card)
+    tb = [x.to(torch.bfloat16) for x in t]
     for window in (None, 64):
         before, wgmma = tkernel.LAUNCHES.value, tkernel.WGMMA_LAUNCHES.value
         got = tkernel.flash_attention_cuda(*t, window=window)
         torch.cuda.synchronize()
         assert tkernel.LAUNCHES.value == before + 1 and tkernel.WGMMA_LAUNCHES.value == wgmma
         _close(got, tref.attention_ref(*t, window=window))
-    tb = [x.to(torch.bfloat16) for x in t]
-    before, wgmma = tkernel.LAUNCHES.value, tkernel.WGMMA_LAUNCHES.value
-    got = tkernel.flash_attention_cuda(*tb)
-    torch.cuda.synchronize()
-    assert tkernel.LAUNCHES.value == before + 1 and tkernel.WGMMA_LAUNCHES.value == wgmma
-    np.testing.assert_allclose(_np(got), _np(tref.flash_attention_blocked(*tb)),
-                               rtol=2 ** -7, atol=2 ** -9)
+        before, simt = tkernel.WGMMA_LAUNCHES.value, tkernel.LAUNCHES.value
+        got = tkernel.flash_attention_cuda(*tb, window=window)
+        torch.cuda.synchronize()
+        assert tkernel.WGMMA_LAUNCHES.value == before + 1 and tkernel.LAUNCHES.value == simt
+        np.testing.assert_allclose(_np(got), _np(tref.flash_attention_blocked(*tb, window=window)),
+                                   rtol=2 ** -7, atol=2 ** -8)
+        _close(got, tref.attention_ref(*t, window=window), 2e-2)
 
 
 @pytest.mark.gpu
 def test_wgmma_refuses_head_dims_over_128(card):
-    """The tensor-core kernel keeps its D <= 128 tiles: called by name on
-    bf16 at D = 256 it raises, and never launches."""
-    t = _t(qkv(1, 64, 64, 2, 2, 256, seed=0), card, torch.bfloat16)
-    before = tkernel.WGMMA_LAUNCHES.value
-    with pytest.raises(ValueError, match="up to 128"):
-        tkernel.flash_attention_wgmma(*t)
-    assert tkernel.WGMMA_LAUNCHES.value == before
+    """The tensor-core kernel takes D a multiple of 16 up to 256 (it took
+    D up to 128 before its 64-key tiles): called by name on bf16 at D = 272
+    or D = 72 it raises, and never launches."""
+    for d, match in ((272, "D <= 256"), (72, "up to 256")):
+        t = _t(qkv(1, 64, 64, 2, 2, d, seed=0), card, torch.bfloat16)
+        before = tkernel.WGMMA_LAUNCHES.value
+        with pytest.raises(ValueError, match=match):
+            tkernel.flash_attention_wgmma(*t)
+        assert tkernel.WGMMA_LAUNCHES.value == before
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("d", [64, 256])
 def test_cuda_kernel_prefix_lm(card, d):
-    """Prefix-LM attention goes to the CUDA-core kernel whatever the dtype
-    and head dim: fp32 within 2e-5 of the oracle, causal and windowed; bf16
-    within one bf16 rounding of the blocked version's fp32 arithmetic on
-    the same values (the tensor-core arithmetic rounds P, this kernel does
-    not)."""
+    """Prefix-LM attention follows the dispatch: fp32 on the CUDA-core
+    kernel within 2e-5 of the oracle, causal and windowed; bf16 at D = 64
+    and 256 on the tensor-core kernel, within one bf16 rounding of the
+    blocked version's bf16-P arithmetic at its key blocks."""
     t = _t(qkv(1, 230, 230, 4, 1, d, seed=d), card)
     tb = [x.to(torch.bfloat16) for x in t]
     for prefix_len in PREFIX:
@@ -354,7 +363,7 @@ def test_cuda_kernel_prefix_lm(card, d):
         before, wgmma = tkernel.LAUNCHES.value, tkernel.WGMMA_LAUNCHES.value
         got = tkernel.flash_attention_cuda(*tb, prefix_len=prefix_len)
         torch.cuda.synchronize()
-        cuda_cores = prefix_len > 0 or d > tkernel.WGMMA_MAX_HEAD_DIM
+        cuda_cores = not tkernel.uses_tensor_cores(torch.bfloat16, d)
         assert tkernel.LAUNCHES.value == before + cuda_cores
         assert tkernel.WGMMA_LAUNCHES.value == wgmma + (not cuda_cores)
         # each kernel's own arithmetic: fp32 P on the CUDA cores, bf16 P on the tensor cores
@@ -366,13 +375,25 @@ def test_cuda_kernel_prefix_lm(card, d):
 
 @pytest.mark.gpu
 def test_wgmma_refuses_prefix(card):
-    """The tensor-core kernel has no prefix-LM mask: called by name with a
-    prefix it raises, and never launches."""
-    t = _t(qkv(1, 64, 64, 2, 2, 64, seed=0), card, torch.bfloat16)
-    before = tkernel.WGMMA_LAUNCHES.value
-    with pytest.raises(ValueError, match="prefix"):
-        tkernel.flash_attention_wgmma(*t, prefix_len=16)
-    assert tkernel.WGMMA_LAUNCHES.value == before
+    """The tensor-core kernel computes the prefix-LM mask (it refused a
+    prefix before): called by name with prefixes from one key to past the
+    keys, causal and windowed, it launches once each and stays within one
+    bf16 rounding of the blocked version, and the prefix changes the
+    result."""
+    t = _t(qkv(1, 230, 230, 4, 2, 64, seed=0), card, torch.bfloat16)
+    got = {}
+    for prefix_len in (1, 16, 200, 300):
+        for window in (None, 48):
+            before = tkernel.WGMMA_LAUNCHES.value
+            got[prefix_len, window] = tkernel.flash_attention_wgmma(*t, window=window,
+                                                                    prefix_len=prefix_len)
+            torch.cuda.synchronize()
+            assert tkernel.WGMMA_LAUNCHES.value == before + 1
+            want = tref.flash_attention_blocked(*t, window=window, prefix_len=prefix_len)
+            np.testing.assert_allclose(_np(got[prefix_len, window]), _np(want), rtol=2 ** -7,
+                                       atol=2 ** -8)
+    causal = tkernel.flash_attention_wgmma(*t)
+    assert float((got[200, None].float() - causal.float()).abs().max()) > 1e-2
 
 
 @pytest.mark.gpu
@@ -395,7 +416,7 @@ def test_cuda_strided_inputs(card):
 
 
 # ---------------------------------------------------------------------------
-# The tensor-core path: bf16 with D a multiple of 16 up to 128
+# The tensor-core path: bf16 with D a multiple of 16 up to 256
 # ---------------------------------------------------------------------------
 
 def _bf16_cases():
@@ -439,42 +460,90 @@ def test_bf16_blocked_matches_jax_model(jx, case):
     _close(got, jx.ref(*[jx.jnp.asarray(_np(x)) for x in t32], causal=True, window=window), 2e-2)
 
 
+# (sq, h, kv, d, window, prefix_len): gemma3's and PaliGemma's head dim 256
+# (causal, windowed, prefix-LM, GQA 4:1), prefix-LM at D = 64 and 144
+WIDE_AND_PREFIX = [(130, 2, 1, 256, None, 0), (150, 4, 1, 256, 40, 0), (140, 4, 1, 256, None, 30),
+                   (200, 4, 2, 64, None, 100), (96, 2, 1, 144, 50, 20)]
+
+
+@pytest.mark.parametrize("case", WIDE_AND_PREFIX, ids=[str(c) for c in WIDE_AND_PREFIX])
+def test_bf16_blocked_matches_jax_model_wide_and_prefix(case):
+    """The tensor-core arithmetic at D = 256 and with a prefix: the plain
+    version at its default key blocks (the kernel's key tile, 64 keys above
+    D = 128) against the JAX model's blocked_attention over key chunks of
+    the same size, within the reference's bf16 bar of 2e-2, and the oracle
+    on the same bf16 values. A card-path q is pre-scaled in bf16 with scale
+    1, as blocked_attention hands it to the kernels."""
+    import jax.numpy as jnp
+
+    from repro.models.attention import blocked_attention
+
+    sq, h, kv, d, window, prefix_len = case
+    arrays = qkv(1, sq, sq, h, kv, d, seed=d + sq + prefix_len)
+    t, t32 = _bf16(arrays)
+    assert tref.uses_tensor_cores(torch.bfloat16, d)
+    tile = tkernel.wgmma_key_tile(d)
+    want_jax = blocked_attention(*[jnp.asarray(a).astype(jnp.bfloat16) for a in arrays],
+                                 window=window or sq, prefix_len=prefix_len, chunk=tile)
+    got = tref.flash_attention_blocked(*t, window=window, prefix_len=prefix_len)
+    _close(got, np.asarray(want_jax.astype(jnp.float32)), 2e-2)
+    _close(got, tref.attention_ref(*t32, window=window, prefix_len=prefix_len), 2e-2)
+    rounded = float(torch.tensor(1 / d ** 0.5, dtype=torch.bfloat16))
+    qs = (t[0].float() * rounded).to(torch.bfloat16)
+    card = tref.flash_attention_blocked(qs, *t[1:], window=window, prefix_len=prefix_len,
+                                        scale=1.0)
+    _close(card, np.asarray(want_jax.astype(jnp.float32)), 2e-2)
+
+
 def test_bf16_blocked_rounds_p_only_on_the_tensor_core_path():
     """bf16 with D = 24 takes the CUDA-core arithmetic: exactly the fp32
-    computation on the same values, cast to bf16. With D = 32 the
-    probabilities are rounded to bf16, which changes the result."""
-    for d, tensor_cores in ((24, False), (32, True)):
+    computation on the same values, cast to bf16, with a prefix too. With
+    D = 32, and at gemma3's and PaliGemma's D = 256 (with and without a
+    prefix), the probabilities are rounded to bf16, which changes the
+    result."""
+    for d, tensor_cores, prefix_len in ((24, False, 0), (32, True, 0), (256, True, 0),
+                                        (24, False, 20), (256, True, 20)):
         t, t32 = _bf16(qkv(1, 70, 70, 2, 1, d, seed=d))
         assert tref.uses_tensor_cores(torch.bfloat16, d) is tensor_cores
-        got = tref.flash_attention_blocked(*t, window=30)
-        fp32_way = tref.flash_attention_blocked(*t32, window=30).to(torch.bfloat16)
-        assert torch.equal(got, fp32_way) is not tensor_cores
+        got = tref.flash_attention_blocked(*t, window=30, prefix_len=prefix_len)
+        fp32_way = tref.flash_attention_blocked(*t32, window=30,
+                                                prefix_len=prefix_len).to(torch.bfloat16)
+        assert torch.equal(got, fp32_way) is not tensor_cores, (d, prefix_len)
 
 
 @pytest.mark.parametrize("dtype,d,want", [
     (torch.bfloat16, 16, True), (torch.bfloat16, 80, True), (torch.bfloat16, 128, True),
-    (torch.bfloat16, 8, False), (torch.bfloat16, 72, False), (torch.bfloat16, 144, False),
-    (torch.bfloat16, 160, False), (torch.bfloat16, 256, False),
+    (torch.bfloat16, 8, False), (torch.bfloat16, 72, False), (torch.bfloat16, 144, True),
+    (torch.bfloat16, 160, True), (torch.bfloat16, 256, True), (torch.bfloat16, 272, False),
     (torch.float32, 80, False), (torch.float32, 64, False), (torch.float16, 64, False),
+    (torch.float32, 256, False),
 ])
 def test_dispatch_rule_between_the_two_kernels(dtype, d, want):
-    """bf16 with D a multiple of 16 up to 128 goes to the tensor-core
-    kernel; fp32 (the 2e-5 bar) and other head dims, 160 and 256 too, to
-    the CUDA-core one."""
+    """bf16 with D a multiple of 16 up to 256 goes to the tensor-core
+    kernel, 144, 160 and gemma3's and PaliGemma's 256 included; fp32 (the
+    2e-5 bar), fp16 and other head dims (72, 8) to the CUDA-core one; above
+    256 (272) no kernel takes it (the wrappers refuse it on the card:
+    test_head_dim_over_256_is_refused)."""
     assert tkernel.uses_tensor_cores(dtype, d) is want
     assert not want or d <= tkernel.WGMMA_MAX_HEAD_DIM
+    assert tkernel.WGMMA_MAX_HEAD_DIM == tkernel.MAX_HEAD_DIM == 256
+    assert d <= tkernel.MAX_HEAD_DIM or not want
 
 
 def test_wgmma_shared_memory_and_blocks_an_sm():
-    """At D = 80 a CTA takes 144,440 bytes (q tile 20,480, three stages of
-    128-key K and V tiles 122,880, barriers and 1 KB of alignment slack); at
-    D = 112 the ring still has three stages, at D = 128 two; every head dim
-    fits one CTA of 384 threads an SM."""
-    assert tkernel.wgmma_shared_memory_bytes(80) == 144_440
-    assert tkernel.wgmma_shared_memory_bytes(112) == 201_784
-    assert tkernel.wgmma_shared_memory_bytes(128) == 164_904
-    for d in range(16, 129, 16):
-        assert tkernel.wgmma_shared_memory_bytes(d) <= 227 * 1024
+    """At D = 80 a CTA takes 144,488 bytes (q tile 20,480, three stages of
+    128-key K and V tiles 122,880, 13 barriers and 1 KB of alignment
+    slack); at D = 112 the rings still have three stages, at D = 128 two;
+    above 128 the key tile is 64 keys, two stages, so that D = 256 takes
+    197,704 bytes (q 65,536, rings 131,072); every head dim fits one CTA of
+    384 threads an SM, under the 232,448 bytes a block may have."""
+    assert tkernel.wgmma_shared_memory_bytes(80) == 144_488
+    assert tkernel.wgmma_shared_memory_bytes(112) == 201_832
+    assert tkernel.wgmma_shared_memory_bytes(128) == 164_936
+    assert tkernel.wgmma_shared_memory_bytes(256) == 197_704
+    for d in range(16, 257, 16):
+        assert tkernel.wgmma_shared_memory_bytes(d) <= 232_448
+        assert tkernel.wgmma_key_tile(d) == (128 if d <= 128 else 64)
     # blocks an SM by shared memory (228 KB, 1 KB reserved a block): one at D = 80
     assert 233_472 // (tkernel.wgmma_shared_memory_bytes(80) + 1024) == 1
     assert tkernel.wgmma_shared_memory_bytes(128) <= 227 * 1024

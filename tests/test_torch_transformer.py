@@ -260,30 +260,32 @@ def test_card_path_scales_q_as_jax(monkeypatch, d):
 
 
 @pytest.mark.parametrize("arch", ["gemma3_1b", "granite_3_8b", "granite_moe_1b_a400m",
-                                  "mixtral_8x7b", "musicgen_medium"])
+                                  "mixtral_8x7b", "paligemma_3b", "musicgen_medium"])
 def test_card_path_prefill_equals_cpu_through_the_plain_versions(monkeypatch, arch):
-    """The reduced prefills without a prefix, their attention taken down
-    the card's path with the tensor-core kernel's blocked plain version in
-    its place (bf16, D = 32): logits and caches equal the CPU path's bit
-    for bit, MoE routing included."""
+    """The reduced prefills, their attention taken down the card's path
+    with the tensor-core kernel's blocked plain version in its place (bf16,
+    D = 32; PaliGemma's prefix-LM mask over its patches too, which the
+    tensor-core kernel now computes): logits and caches equal the CPU
+    path's bit for bit, MoE routing included."""
     from repro_torch.kernels import ref as tref
     from repro_torch.models import attention as tattn
 
     cfg = reduced(tconfigs, arch)
     params = init_params(cfg, 0, device="cpu")
     _, batch = batches(cfg, np.random.default_rng(3), np)
-    want_logits, want_cache, _ = prefill(cfg, params, batch, S_TEXT + 4)
+    max_len = S_TEXT + cfg.num_patches + 4
+    want_logits, want_cache, _ = prefill(cfg, params, batch, max_len)
     calls = []
 
     def kernel(q, k, v, **kw):
-        assert tref.uses_tensor_cores(q.dtype, q.shape[-1]) and not kw["prefix_len"]
-        calls.append(kw["scale"])
+        assert tref.uses_tensor_cores(q.dtype, q.shape[-1])
+        calls.append((kw["scale"], kw["prefix_len"]))
         return tref.flash_attention_blocked(q, k, v, **kw)
 
     monkeypatch.setattr(tattn.kops, "_on_card", lambda t, use_kernel: True)
     monkeypatch.setattr(tattn, "flash_attention_cuda", kernel)
-    logits, cache, _ = prefill(cfg, params, batch, S_TEXT + 4)
-    assert calls == [1.0] * cfg.num_layers
+    logits, cache, _ = prefill(cfg, params, batch, max_len)
+    assert calls == [(1.0, cfg.num_patches)] * cfg.num_layers
     assert torch.equal(logits, want_logits)
     for k in want_cache:
         assert torch.equal(cache[k], want_cache[k]), k
