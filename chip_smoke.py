@@ -89,7 +89,19 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
     0 real q, k and v as in 21, at full width;
 23. card against CPU on the reduced gemma3_1b, granite_moe_1b_a400m and
     mixtral_8x7b (serve study and prefill, as phases 9 and 13) and
-    paligemma_3b and musicgen_medium (prefill logits and caches).
+    paligemma_3b and musicgen_medium (prefill logits and caches);
+24. training, ``repro_torch.launch.train``'s code path, in a process of
+    its own (a fresh CUDA context and allocator), on gemma3_1b at full
+    width (fp32 masters, sequence 4096, 2 microbatches of one sequence, 4
+    steps): each step's loss, grad_norm, lr, seconds and tokens a second,
+    the peak device memory, a checkpoint after step 2 restored bit for bit
+    in a fresh Checkpointer and TokenPipeline, steps 3-4 resumed within
+    1e-3 of the uninterrupted run, and no kernel launched (training runs
+    the kernels' plain versions);
+25. card against CPU: one train step of the reduced gemma3_1b,
+    granite_moe_1b_a400m, paligemma_3b, musicgen_medium, zamba2_2p7b and
+    rwkv6_1p6b from the same fp32 masters (loss within 1e-2, updated
+    parameters within 3e-2).
 
 Phase 7 also holds ``ssm_scan`` at Mamba2's real shape (layer 0 of the
 Zamba2 prefill: a per-head decay). Kernel times of short calls are device
@@ -1498,6 +1510,188 @@ def adaptive_card_vs_cpu(pipeline):
           f"{card['active']} and best equal; card {card_s:.3f} s, CPU {cpu_s:.3f} s")
 
 
+# phase 24: python -m repro_torch.launch.train's flags. Cut: a global batch
+# of 2 (2 microbatches of one 4096-token sequence) against train_4k's 256
+TRAIN_ARGS = ["--arch", "gemma3_1b", "--seq", "4096", "--batch", "2", "--microbatches", "2",
+              "--steps", "4", "--ckpt-every", "2"]
+TRAIN_ARCHS = ("gemma3_1b", "granite_moe_1b_a400m", "paligemma_3b", "musicgen_medium",
+               "zamba2_2p7b", "rwkv6_1p6b")  # phase 25: one of each family
+
+
+def train_phase(train_mod, tree_mod, init_params, counters):
+    """Phase 24: the training launcher's code path on full-width gemma3_1b
+    (fp32 masters), 4 steps with a checkpoint after step 2, then a resume
+    from that checkpoint in a fresh Checkpointer and TokenPipeline for steps
+    3-4, held to the uninterrupted run. No kernel may launch: training runs
+    the plain versions. Returns each counter's launches in the phase."""
+    root = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    try:
+        free = shutil.disk_usage(root).free
+        print(f"checkpoint directory {root}: {free / 2**30:.1f} GiB free")
+        print(f"kernel launch counters before the phase: "
+              f"{ {name: c.value for name, c in counters.items()} }; set to 0")
+        for c in counters.values():
+            c.reset()
+        args = train_mod.parse_args(TRAIN_ARGS + ["--ckpt-dir", str(root / "run")])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state = train_mod.setup(args)
+        torch.cuda.synchronize()
+        cfg = state["cfg"]
+        n_params = sum(t.numel() for t in tree_mod.leaves(state["params"]))
+        print(f"{cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, {cfg.num_heads} heads "
+              f"(kv {cfg.num_kv_heads}) of {cfg.head_dim}, windows {cfg.local_window} local / "
+              f"{cfg.global_every - 1}:1 global, vocab {cfg.vocab_size} (padded "
+              f"{cfg.padded_vocab}); {n_params} fp32 master parameters, with AdamW state, set up "
+              f"in {time.perf_counter() - t0:.3f} s")
+        print(f"cut: global batch {args.batch} ({args.microbatches} microbatches of "
+              f"{args.batch // args.microbatches} x {args.seq} tokens) against train_4k's 256")
+        t0 = time.perf_counter()
+        whole = train_mod.run(state, args)
+        run_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        tokens = args.batch * args.seq
+        for r in whole:
+            print(f"step {r['step']}: loss {r['loss']!r}, grad_norm {r['grad_norm']!r}, lr "
+                  f"{r['lr']!r}; {r['seconds']:.3f} s, {tokens / r['seconds']:.0f} tokens/s")
+        steady = [r["seconds"] for r in whole[1:]]
+        print(f"uninterrupted run: {run_s:.3f} s with two checkpoint saves; steps 2-4 "
+              f"{sum(steady) / len(steady):.3f} s a step, {tokens * len(steady) / sum(steady):.0f} "
+              f"tokens/s; max_memory_allocated {peak / 2**30:.3f} GiB")
+        bound = 2.0 * math.log(cfg.padded_vocab) + 5.0
+        for r in whole:
+            check(math.isfinite(r["loss"]) and 0.0 < r["loss"] < bound,
+                  f"step {r['step']} loss {r['loss']} finite, in (0, {bound:.2f})")
+        init = init_params(cfg, 0, state["device"], masters=True)
+        same = [("/".join(k)) for (k, a), b in zip(tree_mod.items(init),
+                                                   tree_mod.leaves(state["params"]))
+                if torch.equal(a, b)]
+        check(not same, f"every parameter leaf changed in training (unchanged: {same})")
+        del init, state
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        # resume from the checkpoint after step 2, in a fresh directory
+        (root / "resume").mkdir()
+        os.rename(root / "run" / "step_00000002", root / "resume" / "step_00000002")
+        shutil.rmtree(root / "run")
+        args = train_mod.parse_args(TRAIN_ARGS + ["--ckpt-dir", str(root / "resume")])
+        t0 = time.perf_counter()
+        state = train_mod.setup(args)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        check(state["start"] == 2 and state["pipe"].step == 2,
+              f"resumed at step {state['start']} (pipeline step {state['pipe'].step}) == 2")
+        step_dir = root / "resume" / "step_00000002"
+        manifest = json.loads((step_dir / "manifest.json").read_text())
+        restored = list(tree_mod.items((state["params"], state["opt_state"])))
+        check([e["key"] for e in manifest["leaves"]] == ["/".join(k) for k, _ in restored],
+              "checkpoint keys in the trees' order")
+        for (key, t), entry in zip(restored, manifest["leaves"]):
+            saved = torch.from_numpy(np.load(step_dir / entry["file"])).to(t.device)
+            check(t.dtype == saved.dtype and torch.equal(t, saved),
+                  f"restored {'/'.join(key)} bit-equal to the checkpoint")
+        print(f"restore: {len(restored)} leaves, {manifest['step']=}, bit-equal to the "
+              f"checkpoint; set-up with restore {restore_s:.3f} s")
+        # the restored trees go with the first update, as in the uninterrupted run
+        del restored, saved, t
+        t0 = time.perf_counter()
+        resumed = train_mod.run(state, args)
+        resume_s = time.perf_counter() - t0
+        check([r["step"] for r in resumed] == [2, 3], "the resume ran steps 3-4")
+        for r, w in zip(resumed, whole[2:]):
+            rel = abs(r["loss"] / w["loss"] - 1)
+            check(rel <= 1e-3, f"resumed step {r['step']} loss {r['loss']} within 1e-3 "
+                  f"relative of the uninterrupted {w['loss']} ({rel:.3g})")
+            print(f"resumed step {r['step']}: loss {r['loss']!r} (uninterrupted {w['loss']!r}, "
+                  f"relative {rel:.3g}); grad_norm {r['grad_norm']!r} ({w['grad_norm']!r}); "
+                  f"{r['seconds']:.3f} s")
+        print(f"resumed run: {resume_s:.3f} s with its final save; set-up, restore and run "
+              f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        del state
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launches = {name: c.value for name, c in counters.items()}
+    print(f"kernel launch counters after the phase: {launches}")
+    check(not any(launches.values()), "no kernel launched while training")
+    return launches
+
+
+def train_child() -> int:
+    """Phase 24 in a process of its own (``python3 -c "import chip_smoke;
+    chip_smoke.train_child()"``), as a training job runs: a fresh CUDA
+    context and caching allocator, which the earlier phases' 5 GiB and
+    their freed blocks would otherwise fragment. Prints its launch counts
+    as the last line, a JSON object."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import tree as tree_mod
+    from repro_torch.kernels import flash_attention, morph_recon, ssm_scan
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import init_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"process {os.getpid()} on {torch.cuda.get_device_name(0)}")
+    launches = train_phase(train_mod, tree_mod, init_params, {
+        "morph_recon": morph_recon.LAUNCHES, "ssm_scan": ssm_scan.LAUNCHES,
+        "flash_attention": flash_attention.LAUNCHES,
+        "flash_attention_wgmma": flash_attention.WGMMA_LAUNCHES})
+    print(json.dumps({"launches": launches}), flush=True)
+    return 0
+
+
+def train_card_vs_cpu(arch, configs, models, steps_mod, optim, data_mod, tree_mod):
+    """Phase 25: one train step (the launcher's OptConfig) of ``arch``'s
+    reduced config on the card and on the CPU, from the same fp32 masters
+    and batch. Returns the differences."""
+    rcfg = configs.reduced_config(configs.get_config(arch))
+    cpu_params = models.init_params(rcfg, 0, device="cpu", masters=True)
+    card_params = to_device(cpu_params, "cuda:0")
+    shape = dataclasses.replace(configs.SHAPES["train_4k"], seq_len=32, global_batch=2)
+    batch = data_mod.TokenPipeline(rcfg, shape, seed=0).batch_at(0)
+    step = steps_mod.make_train_step(rcfg, None, optim.OptConfig())
+    out = {}
+    for dev, params in (("cpu", cpu_params), ("cuda:0", card_params)):
+        tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        new, _, metrics = step(params, optim.adamw_init(params), tb)
+        grads = {}
+        req = tree_mod.tree_map(lambda t: t.detach().requires_grad_(True), params)
+        loss = models.forward_train(rcfg, steps_mod.cast_for_compute(req), tb)
+        for (k, _), g in zip(tree_mod.items(req), torch.autograd.grad(loss, tree_mod.leaves(req))):
+            grads["/".join(k)] = g.float().cpu()
+        out[dev] = (tree_mod.tree_map(lambda t: t.cpu(), new), metrics, grads)
+    (cpu_new, cpu_m, cpu_g), (card_new, card_m, card_g) = out["cpu"], out["cuda:0"]
+    loss_diff = abs(float(card_m["loss"]) - float(cpu_m["loss"]))
+    gnorm_rel = abs(float(card_m["grad_norm"]) / float(cpu_m["grad_norm"]) - 1)
+    # a leaf at zero before the step (norm scales, Mamba2's dt_bias, a_log and
+    # norm, RWKV-6's ln_b) holds one AdamW step after it, about lr times its
+    # gradient's sign: held by the share of elements of the same sign
+    worst, zero_sign = (0.0, ""), (1.0, "")
+    for (k, before), c, g in zip(tree_mod.items(cpu_params), tree_mod.leaves(card_new),
+                                 tree_mod.leaves(cpu_new)):
+        name = "/".join(k)
+        if not before.any():
+            agree = float((torch.sign(c) == torch.sign(g)).float().mean())
+            zero_sign = min(zero_sign, (agree, name))
+        else:
+            worst = max(worst, (float((c - g).norm() / g.norm()), name))
+    grad_rel = max((float((card_g[k] - cpu_g[k]).norm() / cpu_g[k].norm().clamp_min(1e-30)), k)
+                   for k in cpu_g)
+    print(f"{arch} (reduced, {rcfg.family}): loss card {float(card_m['loss'])!r} cpu "
+          f"{float(cpu_m['loss'])!r} (diff {loss_diff:.3g}); grad_norm relative diff "
+          f"{gnorm_rel:.3g}; updated params, worst leaf relative L2 {worst[0]:.3g} ({worst[1]}); "
+          f"leaves at zero before the step: {zero_sign[0]:.4f} of elements of one sign at "
+          f"least ({zero_sign[1]}); gradients, worst leaf relative L2 {grad_rel[0]:.3g} "
+          f"({grad_rel[1]})")
+    check(loss_diff <= 1e-2, f"{arch}: loss within 1e-2 card vs CPU")
+    check(worst[0] <= 3e-2, f"{arch}: every updated leaf within 3e-2 relative L2 card vs CPU")
+    check(zero_sign[0] >= 0.9, f"{arch}: 90% of each zero-started leaf's step of one sign")
+    return {"loss_diff": loss_diff, "grad_norm_rel": gnorm_rel, "param_rel": worst[0],
+            "zero_leaf_sign_agree": zero_sign[0], "grad_rel": grad_rel[0]}
+
+
 T0 = time.perf_counter()
 
 
@@ -1605,6 +1799,8 @@ def main() -> int:
     from repro_torch.models import attention as attention_mod, model as model_mod, moe as moe_mod
     from repro_torch.models import ssm as ssm_mod
     from repro_torch.models.layers import rms_norm
+    from repro_torch import data as data_mod, models, optim, tree as tree_mod
+    from repro_torch.launch import steps as steps_mod
 
     # -- 1. device --------------------------------------------------------
     phase("1 device")
@@ -2212,6 +2408,32 @@ def main() -> int:
         print(f"{rcfg.name} (reduced, {rcfg.family}): prefill of "
               f"{sum(v.shape[1] for v in batch.values())} positions; logits max abs diff "
               f"{logit_err}; cache relative diff " + ", ".join(f"{k} {r}" for k, r in rel.items()))
+
+    # -- 24. training gemma3_1b at full width --------------------------------
+    phase("24 train: repro_torch.launch.train on gemma3_1b at full width, sequence 4096, "
+          "fp32 masters, a checkpoint after step 2 and a resume for steps 3-4")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"this process before the training process: memory_allocated "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB, memory_reserved "
+          f"{torch.cuda.memory_reserved() / 2**30:.3f} GiB")
+    child = subprocess.run(
+        [sys.executable, "-c", "import sys, chip_smoke; sys.exit(chip_smoke.train_child())"],
+        cwd=ROOT, capture_output=True, text=True, timeout=900)
+    print(child.stdout, end="")
+    check(child.returncode == 0, f"the training process exited {child.returncode}:\n"
+          f"{child.stderr[-4000:]}")
+    train_launches = json.loads(child.stdout.strip().splitlines()[-1])["launches"]
+    recon_launches["train"] = train_launches["morph_recon"]
+    launches["train"] = train_launches["ssm_scan"]
+    simt_by_path["train"] = train_launches["flash_attention"]
+    wgmma_by_path["train"] = train_launches["flash_attention_wgmma"]
+    torch.cuda.empty_cache()
+
+    # -- 25. one train step, card against CPU ------------------------------------
+    phase("25 card vs CPU: one train step of the reduced " + ", ".join(TRAIN_ARCHS))
+    for arch in TRAIN_ARCHS:
+        train_card_vs_cpu(arch, configs, models, steps_mod, optim, data_mod, tree_mod)
 
     # -- results -----------------------------------------------------------
     ms_k, ms_p, bound = timing[(f"seg2 {SIZE}x{SIZE}", int(default["RC"]))][:3]

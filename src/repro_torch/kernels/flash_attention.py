@@ -171,6 +171,7 @@ def flash_attention_cuda(
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, prefix_len: int = 0) -> None:
+    nvcc.check_forward_only("flash_attention", q, k, v)
     dev = q.device
     if dev.type != "cuda" or k.device != dev or v.device != dev:
         raise ValueError(

@@ -140,6 +140,7 @@ def _launch(marker: torch.Tensor, mask: torch.Tensor, conn: int, *, grid_blocks:
     """One launch; ``grid_blocks`` 0 sizes the grid to the co-resident limit
     (no more blocks than the tiles need); a number above the limit raises,
     since ``grid.sync()`` would wait for blocks that cannot start."""
+    nvcc.check_forward_only("morph_recon", marker, mask)
     if marker.device.type != "cuda" or mask.device != marker.device:
         raise ValueError(
             f"marker and mask must be on one CUDA device, got {marker.device} and {mask.device}"

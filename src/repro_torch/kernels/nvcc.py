@@ -1,9 +1,10 @@
-"""Build and count the hand-written CUDA kernels.
+"""Build, count and guard the hand-written CUDA kernels.
 
 Each kernel is one ``csrc/<name>.cu`` with a plain C interface. It is built
 with ``nvcc`` for ``sm_90a`` into a shared library at first use, into
 ``_build/`` beside this file, and loaded with ``ctypes``. There is no
-fallback: a missing ``nvcc`` or a failed build raises.
+fallback: a missing ``nvcc`` or a failed build raises. The kernels compute
+forward passes only (:func:`check_forward_only`).
 """
 
 from __future__ import annotations
@@ -96,3 +97,17 @@ class LaunchCount:
     def reset(self) -> None:
         with self._lock:
             self.value = 0
+
+
+def check_forward_only(kernel: str, *inputs: "torch.Tensor") -> None:
+    """Raises where autograd would need a gradient of the kernel's output:
+    its result is written into a fresh tensor outside autograd, so the
+    gradient would be dropped without a word. Training runs the kernels'
+    plain versions (``train=True`` in the models)."""
+    import torch
+
+    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+        raise RuntimeError(
+            f"{kernel}: an input requires a gradient, and the kernel has no backward pass; "
+            "run it under torch.no_grad(), or take the plain version to differentiate"
+        )

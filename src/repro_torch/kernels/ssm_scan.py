@@ -99,6 +99,7 @@ def ssm_scan_cuda(
     a pass needs more shared memory than a block may take
     (:func:`shared_memory_bytes`), as the launch refuses it.
     """
+    nvcc.check_forward_only("ssm_scan", x, a, b, c)
     dev = x.device
     if dev.type != "cuda" or any(t.device != dev for t in (a, b, c)):
         raise ValueError(

@@ -1,7 +1,8 @@
-"""Model zoo: layer library + models built from a config (RWKV-6 and Zamba2 so far)."""
+"""Model zoo: layer library + models built from a config: every family of the JAX package."""
 
 from repro_torch.models.model import (  # noqa: F401
     decode_step,
+    forward_train,
     init_cache,
     init_params,
     params_from_jax,

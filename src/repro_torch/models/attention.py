@@ -14,8 +14,10 @@ tensor-core one, which rounds the probabilities to bf16 before P·V as JAX
 does, a key tile at a time; only fp32 inputs and head dims that are no
 multiple of 16 would take the CUDA-core one. A CPU tensor runs the JAX
 package's own streaming softmax over key chunks, with its bf16 operands and
-fp32 sums. Decode is plain PyTorch on either device, as the JAX package
-computes it.
+fp32 sums, and so does training (``train=True``) on either device: the
+kernels compute no gradient, and the JAX package's ``forward_train``
+differentiates this arithmetic on every backend. Decode is plain PyTorch on
+either device, as the JAX package computes it.
 """
 
 from __future__ import annotations
@@ -49,13 +51,15 @@ def blocked_attention(
     q_offset: int = 0,  # absolute position of q[0] (prefill continuation)
     prefix_len: int = 0,  # bidirectional prefix (PaliGemma prefix-LM)
     chunk: int = 1024,
+    train: bool = False,  # the differentiable route, on either device
 ) -> torch.Tensor:
     """Causal (+ sliding-window / prefix-LM) attention with an fp32
-    streaming softmax. On the card: the kernels. On the CPU: the JAX
-    package's arithmetic over key chunks of ``chunk``."""
+    streaming softmax. On the card, unless ``train``: the kernels. On the
+    CPU, and for training: the JAX package's arithmetic over key chunks of
+    ``chunk``, which autograd differentiates."""
     b, sq, h, d = q.shape
     sk, kv = k.shape[1], k.shape[2]
-    if kops._on_card(q, None):
+    if not train and kops._on_card(q, None):
         # a window that reaches past every key masks nothing
         w = None if window >= sk + q_offset else int(window)
         # q scaled in its dtype as JAX scales it, so the kernels take scale 1

@@ -1,8 +1,9 @@
 """Shared neural-net layers (functional style; params are dicts of tensors).
 
 Conventions, as in the JAX package:
-  * matrices are used in bf16 (``COMPUTE_DTYPE``); norms, biases and decay
-    vectors stay fp32;
+  * matrices are used in bf16 (``COMPUTE_DTYPE``), their products summed in
+    fp32 and rounded once (:func:`matmul`); norms, biases and decay vectors
+    stay fp32;
   * stacked per-layer weights carry a leading L dim; the model walks it
     with a Python loop.
 """
@@ -23,9 +24,11 @@ __all__ = [
     "rms_norm",
     "rope_frequencies",
     "apply_rope",
+    "matmul",
     "swiglu",
     "dense_ffn",
     "normal_init",
+    "cross_entropy",
 ]
 
 
@@ -51,6 +54,18 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` with ``w`` rounded to bf16: a bf16 product whose sums run
+    in fp32 and are rounded to bf16 once, as XLA computes it on the CPU and
+    cuBLAS on the card. PyTorch's bf16 product on the CPU rounds some small
+    elements otherwise (about one in ten thousand), which the layers of a
+    model at random weights amplify; so CPU tensors multiply in fp32."""
+    w = w.to(COMPUTE_DTYPE)
+    if x.device.type == "cpu":
+        return (x.float() @ w.float()).to(COMPUTE_DTYPE)
+    return x @ w
+
+
 def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     return F.silu(gate.float()).to(gate.dtype) * up
 
@@ -58,9 +73,8 @@ def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
 def dense_ffn(
     x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor
 ) -> torch.Tensor:
-    dt = COMPUTE_DTYPE
-    h = swiglu(x @ w_gate.to(dt), x @ w_up.to(dt))
-    return h @ w_down.to(dt)
+    h = swiglu(matmul(x, w_gate), matmul(x, w_up))
+    return matmul(h, w_down)
 
 
 def normal_init(
@@ -78,3 +92,24 @@ def normal_init(
     std = std if std is not None else 1.0 / math.sqrt(fan_in)
     w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device or gen.device)
     return w.mul_(std).to(dtype)
+
+
+def cross_entropy(
+    logits: torch.Tensor, labels: torch.Tensor, *, valid: Optional[torch.Tensor] = None,
+    vocab_size: Optional[int] = None,
+) -> torch.Tensor:
+    """Mean token cross-entropy in fp32. ``vocab_size`` masks padded vocab
+    entries (padded_vocab > vocab_size) with -1e9; ``valid`` masks positions
+    and the mean is over ``max(sum(valid), 1)`` of them."""
+    logits = logits.float()
+    if vocab_size is not None and vocab_size < logits.shape[-1]:
+        neg = torch.zeros(logits.shape[-1], dtype=torch.float32, device=logits.device)
+        neg[vocab_size:] = -1e9
+        logits = logits + neg
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = lse - gold
+    if valid is None:
+        return nll.mean()
+    v = valid.float()
+    return (nll * v).sum() / torch.clamp_min(v.sum(), 1.0)

@@ -1,5 +1,6 @@
-"""Models built from a config: parameter init, prefill and decode, for
-every family of the JAX package's ``repro.models.model``:
+"""Models built from a config: parameter init, the training forward
+(:func:`forward_train`, the mean token cross-entropy), prefill and decode,
+for every family of the JAX package's ``repro.models.model``:
   * ``dense`` / ``moe`` / ``vlm`` / ``audio``: pre-norm transformer blocks
     (GQA + RoPE + a SwiGLU FFN, or top-k MoE: :mod:`repro_torch.models.moe`),
     each layer with its window from ``cfg.layer_windows`` (gemma3's 5:1
@@ -15,6 +16,12 @@ every family of the JAX package's ``repro.models.model``:
   * ``ssm`` (RWKV-6): time mixing runs the ``ssm_scan`` kernel.
 An unknown family raises ``ValueError``, as in the JAX package.
 
+Training takes the plain versions of the kernels on either device (the
+kernels compute no gradient; the JAX package's ``forward_train`` never
+reaches a Pallas kernel off the TPU), and recomputes each layer (each
+Zamba2 super-block) in the backward pass, as the JAX package's
+``jax.checkpoint(..., nothing_saveable)`` does.
+
 Parameters are a dict of tensors with the JAX package's keys; per-layer
 weights are stacked on leading dims and walked with Python loops. The
 matrices that the JAX package casts to bf16 at every use (the projections,
@@ -23,25 +30,31 @@ embedding and the LM head) are held in bf16 once, as
 ``launch/steps.cast_for_compute`` does there: the cast is deterministic, so
 the numbers are the same, and decoding does not re-cast billions of
 parameters a token. Everything else (norms, biases, decays, skips, the MoE
-router) stays fp32.
+router) stays fp32. For training, ``masters=True`` keeps every leaf in
+fp32, as the JAX package's ``init_params`` returns them; the train step casts
+them for each forward (:func:`repro_torch.launch.steps.cast_for_compute`).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, Mapping, Union
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import blocked_attention, decode_attention
-from repro_torch.models.layers import COMPUTE_DTYPE, apply_rope, dense_ffn, normal_init, rms_norm
+from repro_torch.models.layers import (COMPUTE_DTYPE, apply_rope, cross_entropy, dense_ffn,
+                                      matmul, normal_init, rms_norm)
 from repro_torch.models.moe import moe_ffn
 
-__all__ = ["init_params", "params_from_jax", "init_cache", "prefill", "decode_step"]
+__all__ = ["init_params", "params_from_jax", "forward_train", "init_cache", "prefill",
+           "decode_step"]
 
 # held in bf16 (see the module docstring), by leaf name: RWKV-6's, then
 # Zamba2's and the transformers' (no name of one family names an fp32 leaf
@@ -71,11 +84,12 @@ def _check_ctx(ctx) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _rwkv_params(gen: torch.Generator, cfg: ModelConfig, layers: int, dev: torch.device):
+def _rwkv_params(gen: torch.Generator, cfg: ModelConfig, layers: int, dev: torch.device,
+                 wdt: torch.dtype):
     d, f = cfg.d_model, cfg.d_ff
     lora = 64
 
-    def mat(*s, std=None, dtype=COMPUTE_DTYPE):
+    def mat(*s, std=None, dtype=wdt):
         return normal_init(gen, (layers, *s), std, dtype=dtype, device=dev)
 
     def full(value):
@@ -104,13 +118,14 @@ def _rwkv_params(gen: torch.Generator, cfg: ModelConfig, layers: int, dev: torch
     }
 
 
-def _attn_params(gen: torch.Generator, cfg: ModelConfig, dev: torch.device, lead=()):
+def _attn_params(gen: torch.Generator, cfg: ModelConfig, dev: torch.device, wdt: torch.dtype,
+                 lead=()):
     """Attention projections, stacked on the ``lead`` dims (the shared
     block: none; a transformer: its layers)."""
     d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
 
     def mat(*s, std=None):
-        return normal_init(gen, (*lead, *s), std, dtype=COMPUTE_DTYPE, device=dev)
+        return normal_init(gen, (*lead, *s), std, dtype=wdt, device=dev)
 
     return {
         "wq": mat(d, h * hd),
@@ -120,12 +135,13 @@ def _attn_params(gen: torch.Generator, cfg: ModelConfig, dev: torch.device, lead
     }
 
 
-def _ffn_params(gen: torch.Generator, cfg: ModelConfig, dev: torch.device, lead=()):
+def _ffn_params(gen: torch.Generator, cfg: ModelConfig, dev: torch.device, wdt: torch.dtype,
+                lead=()):
     """A SwiGLU FFN, or ``cfg.num_experts`` of them and their fp32 router,
     stacked on the ``lead`` dims (the shared block: none)."""
     d, f = cfg.d_model, cfg.d_ff
 
-    def mat(*s, std=None, dtype=COMPUTE_DTYPE):
+    def mat(*s, std=None, dtype=wdt):
         return normal_init(gen, (*lead, *s), std, dtype=dtype, device=dev)
 
     if cfg.num_experts:
@@ -139,7 +155,7 @@ def _ffn_params(gen: torch.Generator, cfg: ModelConfig, dev: torch.device, lead=
     return {"w_gate": mat(d, f), "w_up": mat(d, f), "w_down": mat(f, d)}
 
 
-def _mamba_params(gen: torch.Generator, cfg: ModelConfig, dev: torch.device):
+def _mamba_params(gen: torch.Generator, cfg: ModelConfig, dev: torch.device, wdt: torch.dtype):
     """Every Mamba2 layer's weights, stacked (super-blocks, layers a block)."""
     d = cfg.d_model
     d_in = cfg.ssm_expand * d
@@ -147,7 +163,7 @@ def _mamba_params(gen: torch.Generator, cfg: ModelConfig, dev: torch.device):
     nb, ae = cfg.num_layers // cfg.attn_every, cfg.attn_every
 
     def mat(*s, std=None):
-        w = normal_init(gen, (cfg.num_layers, *s), std, dtype=COMPUTE_DTYPE, device=dev)
+        w = normal_init(gen, (cfg.num_layers, *s), std, dtype=wdt, device=dev)
         return w.reshape(nb, ae, *s)
 
     def full(size, value):
@@ -169,11 +185,15 @@ def init_params(
     cfg: ModelConfig,
     seed_or_generator: Union[int, torch.Generator],
     device: Union[None, str, torch.device] = None,
+    *,
+    masters: bool = False,
 ) -> Dict[str, Any]:
     """Random parameters with the JAX package's keys, shapes and scales,
     drawn on ``device`` (``None``: the card, raising without one) from a
-    seeded ``torch.Generator``. The draws differ from ``jax.random``'s;
-    use :func:`params_from_jax` to compute what the JAX package computes."""
+    seeded ``torch.Generator``: :data:`BF16_WEIGHTS` in bf16 for serving,
+    or every leaf in fp32 with ``masters`` (for training; the same draws).
+    The draws differ from ``jax.random``'s; use :func:`params_from_jax` to
+    compute what the JAX package computes."""
     _check_family(cfg)
     dev = resolve_device(device)
     if isinstance(seed_or_generator, torch.Generator):
@@ -183,40 +203,43 @@ def init_params(
     else:
         gen = torch.Generator(device=dev).manual_seed(int(seed_or_generator))
     d, vp = cfg.d_model, cfg.padded_vocab
+    wdt = torch.float32 if masters else COMPUTE_DTYPE
     params: Dict[str, Any] = {"final_norm": torch.zeros(d, dtype=torch.float32, device=dev)}
     if cfg.family == "audio":  # no token embedding: one head per codebook
         params["lm_head"] = normal_init(gen, (d, cfg.num_codebooks * vp), 0.02,
-                                        dtype=COMPUTE_DTYPE, device=dev)
+                                        dtype=wdt, device=dev)
     else:
-        params["embed"] = normal_init(gen, (vp, d), 0.02, dtype=COMPUTE_DTYPE, device=dev)
-        params["lm_head"] = normal_init(gen, (d, vp), 0.02, dtype=COMPUTE_DTYPE, device=dev)
+        params["embed"] = normal_init(gen, (vp, d), 0.02, dtype=wdt, device=dev)
+        params["lm_head"] = normal_init(gen, (d, vp), 0.02, dtype=wdt, device=dev)
     if cfg.family in _TRANSFORMERS:
         L = cfg.num_layers
         params["layers"] = {
             "ln1": torch.zeros((L, d), dtype=torch.float32, device=dev),
             "ln2": torch.zeros((L, d), dtype=torch.float32, device=dev),
-            **_attn_params(gen, cfg, dev, (L,)),
-            **_ffn_params(gen, cfg, dev, (L,)),
+            **_attn_params(gen, cfg, dev, wdt, (L,)),
+            **_ffn_params(gen, cfg, dev, wdt, (L,)),
         }
     elif cfg.family == "hybrid":
-        params["mamba"] = _mamba_params(gen, cfg, dev)
+        params["mamba"] = _mamba_params(gen, cfg, dev, wdt)
         params["shared_attn"] = {
             "ln1": torch.zeros(d, dtype=torch.float32, device=dev),
             "ln2": torch.zeros(d, dtype=torch.float32, device=dev),
-            **_attn_params(gen, cfg, dev),
-            **_ffn_params(gen, cfg, dev),
+            **_attn_params(gen, cfg, dev, wdt),
+            **_ffn_params(gen, cfg, dev, wdt),
         }
     else:
-        params["layers"] = _rwkv_params(gen, cfg, cfg.num_layers, dev)
+        params["layers"] = _rwkv_params(gen, cfg, cfg.num_layers, dev, wdt)
     return params
 
 
 def params_from_jax(
-    tree: Mapping[str, Any], device: Union[None, str, torch.device] = None
+    tree: Mapping[str, Any], device: Union[None, str, torch.device] = None, *,
+    masters: bool = False,
 ) -> Dict[str, Any]:
     """The JAX package's parameter tree, its leaves given as numpy arrays
     (``jax.tree.map(np.asarray, params)``), as the port's: same keys, the
-    values as tensors on ``device``, :data:`BF16_WEIGHTS` cast to bf16."""
+    values as tensors on ``device``, :data:`BF16_WEIGHTS` cast to bf16, or,
+    with ``masters``, every float leaf in fp32 (for training)."""
     dev = resolve_device(device)
 
     def conv(key: str, value: Any):
@@ -226,7 +249,7 @@ def params_from_jax(
         if arr.dtype.kind == "f":
             arr = arr.astype(np.float32)  # exact for the fp32 and bf16 leaves
         t = torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
-        return t.to(COMPUTE_DTYPE) if key in BF16_WEIGHTS else t
+        return t.to(COMPUTE_DTYPE) if key in BF16_WEIGHTS and not masters else t
 
     return {k: conv(k, v) for k, v in tree.items()}
 
@@ -258,7 +281,7 @@ def _logits(cfg: ModelConfig, params, x_last: torch.Tensor) -> torch.Tensor:
     """(B, D) -> fp32 (B, V); the product is rounded to bf16 before the
     fp32 cast, as in the JAX package."""
     x_last = rms_norm(x_last, params["final_norm"], cfg.norm_eps)
-    return (x_last @ params["lm_head"].to(COMPUTE_DTYPE)).float()
+    return matmul(x_last, params["lm_head"]).float()
 
 
 def _embed_step(cfg: ModelConfig, params, batch) -> torch.Tensor:
@@ -288,20 +311,20 @@ def _attn_qkv(x, p, cfg: ModelConfig, positions):
     """Pre-norm q, k, v with RoPE: (B,S,H,hd), (B,S,KV,hd), (B,S,KV,hd)."""
     b, s, _ = x.shape
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    dt = COMPUTE_DTYPE
     a = rms_norm(x, p["ln1"], cfg.norm_eps)
-    q = (a @ p["wq"].to(dt)).reshape(b, s, h, hd)
-    k = (a @ p["wk"].to(dt)).reshape(b, s, kv, hd)
-    v = (a @ p["wv"].to(dt)).reshape(b, s, kv, hd)
+    q = matmul(a, p["wq"]).reshape(b, s, h, hd)
+    k = matmul(a, p["wk"]).reshape(b, s, kv, hd)
+    v = matmul(a, p["wv"]).reshape(b, s, kv, hd)
     return apply_rope(q, positions, cfg.rope_theta), apply_rope(k, positions, cfg.rope_theta), v
 
 
-def _attn_block(x, p, cfg: ModelConfig, *, window, positions, prefix_len=0):
-    """Returns (x + attention, (k, v)): the keys and values for the cache."""
+def _attn_block(x, p, cfg: ModelConfig, *, window, positions, prefix_len=0, train=False):
+    """Returns (x + attention, (k, v)): the keys and values for the cache.
+    ``train`` takes attention's differentiable route."""
     b, s, _ = x.shape
     q, k, v = _attn_qkv(x, p, cfg, positions)
-    o = blocked_attention(q, k, v, window=window, prefix_len=prefix_len)
-    x = x + o.reshape(b, s, -1) @ p["wo"].to(COMPUTE_DTYPE)
+    o = blocked_attention(q, k, v, window=window, prefix_len=prefix_len, train=train)
+    x = x + matmul(o.reshape(b, s, -1), p["wo"])
     return x, (k, v)
 
 
@@ -323,7 +346,84 @@ def _decode_attn_layer(x, p, cfg: ModelConfig, kc, vc, cur_len: int, window: int
     kc[:, cur_len] = k[:, 0].to(kc.dtype)
     vc[:, cur_len] = v[:, 0].to(vc.dtype)
     o = decode_attention(q, kc, vc, cur_len + 1, window=window)
-    return x + o.reshape(b, 1, -1) @ p["wo"].to(COMPUTE_DTYPE)
+    return x + matmul(o.reshape(b, 1, -1), p["wo"])
+
+
+# ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+
+
+def _remat(fn, *args):
+    """``fn(*args)``, its activations recomputed in the backward pass
+    instead of kept: the JAX package's ``jax.checkpoint(...,
+    nothing_saveable)`` around each layer."""
+    return checkpoint(fn, *args, use_reentrant=False)
+
+
+def _transformer_layer(x, p, cfg: ModelConfig, window: int, positions, prefix_len: int):
+    x, _ = _attn_block(x, p, cfg, window=window, positions=positions, prefix_len=prefix_len,
+                       train=True)
+    return _ffn_block(x, p, cfg)
+
+
+def _mamba_layer(x, p, cfg: ModelConfig):
+    return x + ssm_mod.mamba2_block(rms_norm(x, p["ln"], cfg.norm_eps), p, cfg, train=True)
+
+
+def _hybrid_super_block(x, mp, shared, cfg: ModelConfig, positions):
+    """Six Mamba2 layers, then the shared attention+MLP block."""
+    for j in range(_depth(mp)):
+        x = _mamba_layer(x, _unstack(mp, j), cfg)
+    return _transformer_layer(x, shared, cfg, x.shape[1], positions, 0)
+
+
+def _rwkv_layer(x, p, cfg: ModelConfig):
+    x = x + ssm_mod.rwkv6_block(rms_norm(x, p["ln1"], cfg.norm_eps), p, cfg, train=True)
+    y, _ = ssm_mod.rwkv6_channel_mix(rms_norm(x, p["ln2"], cfg.norm_eps), p)
+    return x + y
+
+
+def _backbone(cfg: ModelConfig, params, x, *, positions, prefix_len: int):
+    """Every layer of the stack on the training route, each recomputed in
+    the backward pass, then the final norm."""
+    if cfg.family in _TRANSFORMERS:
+        for i, window in enumerate(cfg.layer_windows(x.shape[1])):
+            layer = functools.partial(_transformer_layer, cfg=cfg, window=window,
+                                      positions=positions, prefix_len=prefix_len)
+            x = _remat(layer, x, _unstack(params["layers"], i))
+    elif cfg.family == "hybrid":
+        block = functools.partial(_hybrid_super_block, cfg=cfg, positions=positions)
+        for sb in range(_depth(params["mamba"])):
+            x = _remat(block, x, _unstack(params["mamba"], sb), params["shared_attn"])
+    else:
+        layer = functools.partial(_rwkv_layer, cfg=cfg)
+        for i in range(_depth(params["layers"])):
+            x = _remat(layer, x, _unstack(params["layers"], i))
+    return rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+
+def forward_train(cfg: ModelConfig, params, batch, ctx=None) -> torch.Tensor:
+    """Mean token cross-entropy (fp32 scalar) of ``batch``: {"tokens",
+    "labels"} (B, S); vlm also {"patch_embeds"} (its loss over the text
+    positions only); audio {"frame_embeds": (B, S, D), "labels": (B, S,
+    codebooks)}. Labels below 0 are not counted. Differentiable in
+    ``params``; the kernels are not used (see the module docstring)."""
+    _check_family(cfg)
+    _check_ctx(ctx)
+    x, prefix_len = _embed_inputs(cfg, params, batch)
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    x = _backbone(cfg, params, x, positions=positions, prefix_len=prefix_len)
+    logits = matmul(x, params["lm_head"])
+    labels = batch["labels"].to(device=x.device, dtype=torch.long)
+    if cfg.family == "audio":
+        logits = logits.reshape(b, s, cfg.num_codebooks, cfg.padded_vocab)
+        return cross_entropy(logits, labels, vocab_size=cfg.vocab_size)
+    if cfg.family == "vlm":
+        logits = logits[:, prefix_len:]  # loss over text positions only
+    return cross_entropy(logits, torch.clamp_min(labels, 0), valid=labels >= 0,
+                         vocab_size=cfg.vocab_size)
 
 
 # ---------------------------------------------------------------------------

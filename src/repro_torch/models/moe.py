@@ -22,7 +22,7 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import COMPUTE_DTYPE, swiglu
+from repro_torch.models.layers import COMPUTE_DTYPE, matmul, swiglu
 
 __all__ = ["moe_ffn", "moe_ffn_local", "route"]
 
@@ -82,8 +82,8 @@ def moe_ffn_local(
     xe = torch.zeros((e * cap + 1, d), dtype=dt, device=x.device)
     xe[slot] = x[tok].to(dt)
     xe = xe[: e * cap].reshape(e, cap, d)
-    h = swiglu(torch.bmm(xe, w_gate.to(dt)), torch.bmm(xe, w_up.to(dt)))
-    ye = torch.bmm(h, w_down.to(dt)).reshape(e * cap, d)
+    h = swiglu(matmul(xe, w_gate), matmul(xe, w_up))
+    ye = matmul(h, w_down).reshape(e * cap, d)
     ye = torch.cat([ye, torch.zeros((1, d), dtype=dt, device=x.device)], 0)
     out = ye[slot] * (gval.reshape(-1)[:, None] * keep[:, None]).to(dt)
     return out.reshape(t, k, d).sum(1)

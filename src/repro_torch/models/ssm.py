@@ -10,8 +10,11 @@ Mamba2 has a scalar decay per head (``a`` of shape (B, S, H), which the
 kernel reads with a zero stride over the state dim). RWKV-6 has a
 per-channel, data-dependent decay ``w`` and the current-token bonus ``u``
 added at readout, as in the JAX package (decay applied at the consuming
-step). Prefill runs the chunked scan (the CUDA kernel on the card); decode
-updates the state directly, O(1) a token, with plain tensor code.
+step). Prefill runs the chunked scan (the CUDA kernel on the card);
+training (``train=True``) runs the chunked scan's plain version on either
+device, which autograd differentiates, as the JAX package's training does
+off the TPU; decode updates the state directly, O(1) a token, with plain
+tensor code.
 """
 
 from __future__ import annotations
@@ -22,7 +25,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
-from repro_torch.models.layers import COMPUTE_DTYPE, rms_norm
+from repro_torch.kernels import ref as kref
+from repro_torch.models.layers import COMPUTE_DTYPE, matmul, rms_norm
 
 __all__ = [
     "mamba2_block",
@@ -60,7 +64,7 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, prev: Optional[torch.Tensor] 
 def _mamba_project(x, p, cfg):
     d_in = cfg.ssm_expand * cfg.d_model
     n = cfg.ssm_state
-    zxbcdt = x @ p["in_proj"].to(COMPUTE_DTYPE)
+    zxbcdt = matmul(x, p["in_proj"])
     z, xs, bc, cc, dt = torch.split(zxbcdt, [d_in, d_in, n, n, cfg.ssm_heads], dim=-1)
     # softplus as jax.nn.softplus: log(1 + e^x) without a cut-off
     dt = torch.logaddexp(dt.float() + p["dt_bias"].float(), torch.zeros((), device=x.device))
@@ -76,7 +80,7 @@ def _mamba_readout(y, xh, z, p, cfg):
     y = y.reshape(b, s, -1).to(COMPUTE_DTYPE)
     y = y * F.silu(z.float()).to(COMPUTE_DTYPE)
     y = rms_norm(y, p["norm"], cfg.norm_eps)
-    return y @ p["out_proj"].to(COMPUTE_DTYPE)
+    return matmul(y, p["out_proj"])
 
 
 def mamba2_scan_inputs(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg):
@@ -94,12 +98,15 @@ def mamba2_scan_inputs(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg):
 
 
 def mamba2_block(
-    x: torch.Tensor, p: Dict[str, torch.Tensor], cfg, *, return_cache: bool = False
+    x: torch.Tensor, p: Dict[str, torch.Tensor], cfg, *, return_cache: bool = False,
+    train: bool = False,
 ):
-    """x: (B, S, D) -> (B, S, D). Prefill path (chunked scan).
+    """x: (B, S, D) -> (B, S, D). Prefill and training path (chunked scan).
     ``return_cache`` also returns the final recurrence and conv state."""
     (xh, a, beff, ceff), z, conv_state = mamba2_scan_inputs(x, p, cfg)
-    y, hfinal = kops.ssm_scan(xh, a, beff, ceff)
+    # training differentiates the plain version: the kernel has no backward
+    scan = kref.ssm_scan_chunked if train else kops.ssm_scan
+    y, hfinal = scan(xh, a, beff, ceff)
     out = _mamba_readout(y, xh, z, p, cfg)
     if return_cache:
         return out, {"state": hfinal, "conv": conv_state}
@@ -154,15 +161,14 @@ def _rwkv_mix(x, xprev, mu):
 def _rwkv_project(x, xprev, p, cfg):
     b, s, d = x.shape
     h, n = cfg.ssm_heads, cfg.ssm_head_dim
-    dt = COMPUTE_DTYPE
-    r = _rwkv_mix(x, xprev, p["mu_r"]) @ p["w_r"].to(dt)
-    k = _rwkv_mix(x, xprev, p["mu_k"]) @ p["w_k"].to(dt)
-    v = _rwkv_mix(x, xprev, p["mu_v"]) @ p["w_v"].to(dt)
-    g = _rwkv_mix(x, xprev, p["mu_g"]) @ p["w_g"].to(dt)
+    r = matmul(_rwkv_mix(x, xprev, p["mu_r"]), p["w_r"])
+    k = matmul(_rwkv_mix(x, xprev, p["mu_k"]), p["w_k"])
+    v = matmul(_rwkv_mix(x, xprev, p["mu_v"]), p["w_v"])
+    g = matmul(_rwkv_mix(x, xprev, p["mu_g"]), p["w_g"])
     # data-dependent per-channel decay (low-rank): w in (0, 1)
     xw = _rwkv_mix(x, xprev, p["mu_w"])
     wlog = p["w0"].float() + (
-        torch.tanh(xw @ p["w_lora_a"].to(dt)).float() @ p["w_lora_b"].float()
+        torch.tanh(matmul(xw, p["w_lora_a"])).float() @ p["w_lora_b"].float()
     )
     w = torch.exp(-torch.exp(wlog))  # (B,S,D) per-channel decay
     shape = (b, s, h, n)
@@ -186,17 +192,20 @@ def _rwkv_readout(r, k, v, y_scan, p, cfg, b, s):
 
 def rwkv6_block(
     x: torch.Tensor, p: Dict[str, torch.Tensor], cfg, *, return_state: bool = False,
-    analysis: bool = False,
+    analysis: bool = False, train: bool = False,
 ):
-    """RWKV-6 time-mix, prefill path. x: (B, S, D)."""
+    """RWKV-6 time-mix, prefill and training path. x: (B, S, D)."""
     b, s, d = x.shape
     xprev = _token_shift(x)
     r, k, v, g, w = _rwkv_project(x, xprev, p, cfg)
     # recurrence: h_t = diag(w_t) h_{t-1} + k_t ⊗ v_t ; y = r·h_t
-    y_scan, hfinal = kops.ssm_scan(v, w, k, r, analysis=analysis)  # per-channel decay
+    if train:
+        y_scan, hfinal = kref.ssm_scan_chunked(v, w, k, r)  # per-channel decay
+    else:
+        y_scan, hfinal = kops.ssm_scan(v, w, k, r, analysis=analysis)
     y = _rwkv_readout(r, k, v, y_scan, p, cfg, b, s)
     y = y * F.silu(g.float()).to(COMPUTE_DTYPE)
-    out = y @ p["w_o"].to(COMPUTE_DTYPE)
+    out = matmul(y, p["w_o"])
     if return_state:
         return out, hfinal
     return out
@@ -228,7 +237,7 @@ def rwkv6_decode(
     y_scan = torch.einsum("bhnp,bhn->bhp", state, r[:, 0].float())[:, None]
     y = _rwkv_readout(r, k, v, y_scan, p, cfg, b, 1)
     y = y * F.silu(g.float()).to(COMPUTE_DTYPE)
-    out = y @ p["w_o"].to(COMPUTE_DTYPE)
+    out = matmul(y, p["w_o"])
     return out, {"state": state, "tm_prev": x[:, 0], "cm_prev": cache["cm_prev"]}
 
 
@@ -240,7 +249,7 @@ def rwkv6_channel_mix(
     xprev = _token_shift(x, prev)
     xk = _rwkv_mix(x, xprev, p["mu_ck"])
     xr = _rwkv_mix(x, xprev, p["mu_cr"])
-    kk = torch.square(torch.relu((xk @ p["w_ck"].to(dt)).float()))
-    y = kk.to(dt) @ p["w_cv"].to(dt)
-    rr = torch.sigmoid((xr @ p["w_cr"].to(dt)).float()).to(dt)
+    kk = torch.square(torch.relu(matmul(xk, p["w_ck"]).float()))
+    y = matmul(kk.to(dt), p["w_cv"])
+    rr = torch.sigmoid(matmul(xr, p["w_cr"]).float()).to(dt)
     return rr * y, x[:, -1]

@@ -49,6 +49,11 @@ def test_imports_with_jax_blocked():
         "StudySpec(sampler='moat', n_trajectories=1).resolve(TABLE1_SPACE)  # the lazy import\n"
         "from repro_torch.app import run_dataset_study, run_adaptive_study, run_fleet_study\n"
         "from repro_torch.app.pipeline import pathology_service_build\n"
+        "import repro_torch.optim, repro_torch.optim.grad_compression, repro_torch.checkpoint\n"
+        "import repro_torch.data, repro_torch.launch.steps, repro_torch.launch.train\n"
+        "import repro_torch.launch.serve, repro_torch.tree\n"
+        "from repro_torch.models import forward_train\n"
+        "from repro_torch.models.layers import cross_entropy\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.')) "
         "for m in sys.modules if sys.modules[m] is not None)\n"
     )

@@ -72,7 +72,10 @@ def _hang_until_killed(marker_dir):
     surviving worker's retry path."""
     marker = pathlib.Path(marker_dir) / "pid"
     if not marker.exists():
-        marker.write_text(str(os.getpid()))
+        # through a rename, so that the test never reads the file half written
+        tmp = marker.with_name("pid.tmp")
+        tmp.write_text(str(os.getpid()))
+        os.replace(tmp, marker)
         time.sleep(60.0)
         return "hung"
     return "fast"
