@@ -52,12 +52,13 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
     task;
 15. the adaptive study, ``repro_torch.app.run_adaptive_study`` (MOAT →
     prune → VBD → refine, 3 rounds) on tile 0 over an ``obj:`` store,
-    resumed from its saved state with zero recompute; then the same
-    adaptive study code on card and CPU at 256², round records equal;
-16. phase 14's dataset study through ``backend="process"``: two spawn
-    workers, each with its own CUDA context, Dice equal to phase 14's, the
-    workers' own report of their device and ``morph_recon`` launches, and
-    what ``nvidia-smi`` shows on the card meanwhile;
+    resumed from its saved state with zero recompute (8 of round 1's runs
+    replayed through the engine from the store); then the same adaptive
+    study code on card and CPU at 256², round records equal;
+16. phase 14's dataset study through ``backend="process"`` on its tile 0:
+    two spawn workers, each with its own CUDA context, Dice equal to phase
+    14's, the workers' own report of their device and ``morph_recon``
+    launches, and what ``nvidia-smi`` shows on the card meanwhile;
 17. phase 4's study through ``backend="socket"`` (two workers over
     loopback TCP), Dice equal to phase 4's, then again with one worker
     SIGKILLed while it holds a lease;
@@ -101,7 +102,22 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
 25. card against CPU: one train step of the reduced gemma3_1b,
     granite_moe_1b_a400m, paligemma_3b, musicgen_medium, zamba2_2p7b and
     rwkv6_1p6b from the same fp32 masters (loss within 1e-2, updated
-    parameters within 3e-2).
+    parameters within 3e-2);
+26. distribution, in a process of its own: an NCCL world of one and a
+    (1, 1) ``data, model`` mesh (``launch.mesh.make_mesh_from_devices``);
+    (a) phase 24's training for 2 steps with the masters and AdamW state
+    laid out by ``param_shardings`` and ``make_train_step(cfg, ctx, ...)``,
+    losses and grad norms within 1e-4 of phase 24's first two steps, the
+    compressed DP reducer (bf16, int8) equal to ``compress_decompress``,
+    and a checkpoint of the placed state resumed bit for bit on a fresh
+    mesh (``runtime.elastic.resume_on_mesh``); (b) granite_moe_1b_a400m
+    serving on the mesh (the MoE's ``local_map`` serve branch, attention on
+    the tensor-core kernel inside ``local_map``), a 4096-token prefill and
+    4 decode steps held to ``ctx=None`` on the same weights; (c) beside
+    them on the host, ``python -m repro_torch.launch.train --mesh single``
+    raising for want of 256 ranks, and one dry-run cell
+    (``python -m repro_torch.launch.dryrun``, gemma3_1b ``train_4k`` on a
+    fake 16×16 world of meta tensors, the card hidden from it).
 
 Phase 7 also holds ``ssm_scan`` at Mamba2's real shape (layer 0 of the
 Zamba2 prefill: a per-head decay). Kernel times of short calls are device
@@ -150,6 +166,16 @@ DATASET_TILES = 2
 SEED_STEP = (SIZE // SUB) ** 2  # 64: no sub-tile seed repeats across tiles
 ADAPTIVE_TILES = 1  # phase 15 at SIZE²: one tile (the label loops set its time)
 ADAPTIVE = dict(max_rounds=3, n_trajectories=2, n_base=4, seed=0)
+# phase 15's resume replays this many of round 1's runs through the engine
+# (cut from all of them, about 50 s of store reads, to pay for phase 26)
+RESUME_RUNS = 8
+# phase 16 runs phase 14's study on this many of its tiles (cut from 2: each
+# 4096² tile costs about a minute of store spills on process workers)
+PROCESS_TILES = 1
+# phase 18's fleet and its single driver run this many rounds (cut from 2,
+# MOAT then VBD, to pay for phase 26's timing of (a) and (b) alone on the
+# host: the VBD round cost about 55 s of the phase's 113-121 s)
+FLEET_ROUNDS = 1
 ARCH = "rwkv6_1p6b"
 PROMPTS, PROMPT_LEN, GEN_LEN = 3, 1024, 16
 ZAMBA, Z_PROMPT_LEN = "zamba2_2p7b", 4096
@@ -888,11 +914,12 @@ def dataset_study(pipeline, tiles, sets, study_dice, counters, timers):
 
 
 def process_dataset_study(pipeline, tiles, sets, ds14, counters):
-    """Phase 16: phase 14's study through ``backend="process"``: two spawn
-    workers, each rebuilding the study on its own card context. Per-tile
-    Dice == phase 14's, planned counts equal, the workers on the card and
-    launching ``morph_recon``. Returns {path: launches}: the workers' (from
-    their reports) and the leader's (its in-process reference runs)."""
+    """Phase 16: phase 14's study through ``backend="process"`` over the
+    first of its tiles: two spawn workers, each rebuilding the study on its
+    own card context. Per-tile Dice == phase 14's, planned counts phase 14's
+    per tile, the workers on the card and launching ``morph_recon``.
+    Returns {path: launches}: the workers' (from their reports) and the
+    leader's (its in-process reference runs)."""
     for c in counters:
         c.reset()
     with WorkerWatch(pipeline) as watch:
@@ -918,9 +945,11 @@ def process_dataset_study(pipeline, tiles, sets, ds14, counters):
     for i, row in enumerate(ds["dice"]):
         print(f"dice tile {i}: " + " ".join(f"{d:.6f}" for d in row))
     check(ds["backend"] == "process", f"backend {ds['backend']} == process")
-    check(ds["dice"] == ds14["dice"], "every tile's Dice list == phase 14's")
+    n = len(tiles)
+    check(ds["dice"] == ds14["dice"][:n], f"the Dice lists of phase 14's first {n} tile(s)")
     for key in ("tasks_total", "planned_tasks_executed"):
-        check(ds[key] == ds14[key], f"{key} {ds[key]} == phase 14's {ds14[key]}")
+        check(ds[key] * len(ds14["dice"]) == ds14[key] * n,
+              f"{key} {ds[key]} == phase 14's {ds14[key]} x {n}/{len(ds14['dice'])}")
     check(ds["tasks_executed"] + ds["cache_hits"] == ds["planned_tasks_executed"],
           "executed + hits == planned")
     return {"run_dataset_study(process), workers": workers,
@@ -976,7 +1005,7 @@ def fleet_study(pipeline, counters, timers):
     with tempfile.TemporaryDirectory(prefix="chip_smoke_fleet_") as tmp:
         t0 = time.perf_counter()
         fl = pipeline.run_fleet_study(n_procs=2, store_dir=f"{tmp}/store", size=SIZE, n_tiles=1,
-                                      max_rounds=2)
+                                      max_rounds=FLEET_ROUNDS)
         fleet_s = time.perf_counter() - t0
         used = sum(f.stat().st_size for f in pathlib.Path(tmp).rglob("*") if f.is_file())
     leader = counters[0].value
@@ -1001,7 +1030,7 @@ def fleet_study(pipeline, counters, timers):
                       input_keys=b["input_keys"],
                       state=StudyState(b["space"], seed=0, cache_bytes=64 << 30))
     try:
-        single = drv.run(max_rounds=2)
+        single = drv.run(max_rounds=FLEET_ROUNDS)
     finally:
         drv.close()
     torch.cuda.synchronize()
@@ -1011,7 +1040,8 @@ def fleet_study(pipeline, counters, timers):
     print_task_seconds(task_s, task_n)
     state = fl["state"]
     check(state.evaluated == single.evaluated, "evaluated objectives equal")
-    check(len(state.rounds) == len(single.rounds) == 2, "two rounds each way")
+    check(len(state.rounds) == len(single.rounds) == FLEET_ROUNDS,
+          f"{FLEET_ROUNDS} round(s) each way")
     for fr, sr in zip(state.rounds, single.rounds):
         for key in ("kind", "param_sets", "outputs", "analysis", "decision"):
             check(getattr(fr, key) == getattr(sr, key), f"{fr.kind} round: {key} equal")
@@ -1322,7 +1352,7 @@ def adaptive_study(pipeline, tiles, counters, timers):
             y, stats = drv.evaluate(rec1.param_sets)
             check(stats["n_new"] == 0 and stats["tasks_executed"] == 0 and y == rec1.outputs,
                   f"round 1's runs recalled: {stats}")
-            uniq = list(dict.fromkeys(rec1.param_sets))
+            uniq = list(dict.fromkeys(rec1.param_sets))[:RESUME_RUNS]
             plan = plan_study(wf, uniq, policy="hybrid", active_paths=4)
             st2.epoch += 1
             stream = execute_study(plan, raws, cache=st2.cache, manager=drv._ensure_manager(),
@@ -1336,7 +1366,8 @@ def adaptive_study(pipeline, tiles, counters, timers):
         ran = sum(task_n.values()) - before_tasks
         masks = [stream.outputs[i][rid]["mask"] for i in range(len(tiles)) for rid in range(len(uniq))]
         print(f"saved in {save_s:.3f} s ({used / 2**30:.3f} GiB in the store directory); resumed "
-              f"and round 1's {len(uniq)} runs replayed through the engine in {resume_s:.3f} s: "
+              f"and {len(uniq)} of round 1's {len(set(rec1.param_sets))} runs replayed through the "
+              f"engine in {resume_s:.3f} s: "
               f"tasks executed {stream.tasks_executed}, task calls {ran}, cache hits "
               f"{stream.cache_hits}, rehydrations {st2.cache.rehydrations}, store disk hits "
               f"{st2.store.disk_hits}, cache spills {st2.cache.spills}, store writes that found "
@@ -1523,7 +1554,9 @@ def train_phase(train_mod, tree_mod, init_params, counters):
     (fp32 masters), 4 steps with a checkpoint after step 2, then a resume
     from that checkpoint in a fresh Checkpointer and TokenPipeline for steps
     3-4, held to the uninterrupted run. No kernel may launch: training runs
-    the plain versions. Returns each counter's launches in the phase."""
+    the plain versions. Returns each counter's launches in the phase, and
+    the uninterrupted run's first two steps and peak memory (phase 26's
+    reference)."""
     root = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
     try:
         free = shutil.disk_usage(root).free
@@ -1551,6 +1584,7 @@ def train_phase(train_mod, tree_mod, init_params, counters):
         whole = train_mod.run(state, args)
         run_s = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
+        ref = {"steps": whole[:2], "peak_gib": peak / 2**30}
         tokens = args.batch * args.seq
         for r in whole:
             print(f"step {r['step']}: loss {r['loss']!r}, grad_norm {r['grad_norm']!r}, lr "
@@ -1616,7 +1650,7 @@ def train_phase(train_mod, tree_mod, init_params, counters):
     launches = {name: c.value for name, c in counters.items()}
     print(f"kernel launch counters after the phase: {launches}")
     check(not any(launches.values()), "no kernel launched while training")
-    return launches
+    return launches, ref
 
 
 def train_child() -> int:
@@ -1624,7 +1658,7 @@ def train_child() -> int:
     chip_smoke.train_child()"``), as a training job runs: a fresh CUDA
     context and caching allocator, which the earlier phases' 5 GiB and
     their freed blocks would otherwise fragment. Prints its launch counts
-    as the last line, a JSON object."""
+    and phase 26's reference as the last line, a JSON object."""
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import tree as tree_mod
     from repro_torch.kernels import flash_attention, morph_recon, ssm_scan
@@ -1634,11 +1668,11 @@ def train_child() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"process {os.getpid()} on {torch.cuda.get_device_name(0)}")
-    launches = train_phase(train_mod, tree_mod, init_params, {
+    launches, ref = train_phase(train_mod, tree_mod, init_params, {
         "morph_recon": morph_recon.LAUNCHES, "ssm_scan": ssm_scan.LAUNCHES,
         "flash_attention": flash_attention.LAUNCHES,
         "flash_attention_wgmma": flash_attention.WGMMA_LAUNCHES})
-    print(json.dumps({"launches": launches}), flush=True)
+    print(json.dumps({"launches": launches, "ref": ref}), flush=True)
     return 0
 
 
@@ -1690,6 +1724,326 @@ def train_card_vs_cpu(arch, configs, models, steps_mod, optim, data_mod, tree_mo
     check(zero_sign[0] >= 0.9, f"{arch}: 90% of each zero-started leaf's step of one sign")
     return {"loss_diff": loss_diff, "grad_norm_rel": gnorm_rel, "param_rel": worst[0],
             "zero_leaf_sign_agree": zero_sign[0], "grad_rel": grad_rel[0]}
+
+
+# phase 26: distribution on one H100. Gemma3's training runs phase 24's flags
+# for 2 steps (against phase 24's first two); granite-moe serves one prompt
+DIST_STEPS = 2
+DIST_PROMPT, DIST_DECODE = 4096, 4
+DRYRUN_ARGS = ["--arch", "gemma3_1b", "--shape", "train_4k", "--mesh", "single"]
+
+
+def dist_train(mesh, ref, counters):
+    """Phase 26 (a): phase 24's training on a (1, 1) mesh: the fp32 masters
+    and AdamW state laid out by ``param_shardings``, ``make_train_step(cfg,
+    ctx, ...)`` for 2 steps held to phase 24's first two within 1e-4
+    relative; ``make_dp_grad_reducer`` over 'data' (bf16, int8) on one
+    microbatch's gradients equal to ``compress_decompress`` of them; a
+    checkpoint of the placed state resumed with ``resume_on_mesh`` on a
+    fresh (1, 1) mesh, bit for bit; then 2 ``ctx=None`` steps in this
+    process on the state's local tensors, timed beside the mesh's. Returns
+    the step records, the peak and the ``ctx=None`` steps' seconds."""
+    from repro_torch import tree as tree_mod
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.dist import make_ctx, param_shardings
+    from repro_torch.dist.sharding import replicate_plain
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import make_mesh_from_devices
+    from repro_torch.launch.steps import cast_for_compute, make_train_step, place_batch
+    from repro_torch.models import forward_train
+    from repro_torch.optim import OptConfig
+    from repro_torch.optim.grad_compression import compress_decompress, make_dp_grad_reducer
+    from repro_torch.runtime.elastic import reshard_tree, resume_on_mesh
+
+    ctx = make_ctx(mesh, mode="train")
+    args = train_mod.parse_args(TRAIN_ARGS)
+    t0 = time.perf_counter()
+    state = train_mod.setup(args)
+    cfg = state["cfg"]
+    tree = (state["params"], state["opt_state"])
+    state["params"], state["opt_state"] = reshard_tree(tree, param_shardings(tree, ctx))
+    del tree
+    opt_cfg = OptConfig(lr=args.lr, total_steps=args.steps)
+    state["step_fn"] = make_train_step(cfg, ctx, opt_cfg, microbatches=args.microbatches)
+    torch.cuda.synchronize()
+    leaf = tree_mod.leaves(state["params"])[0]
+    print(f"{cfg.name}: fp32 masters and AdamW state laid out by param_shardings on the mesh "
+          f"(e.g. embed {list(leaf.placements)}, local {tuple(leaf.to_local().shape)}) in "
+          f"{time.perf_counter() - t0:.3f} s; ctx dp {ctx.dp}, model axis {ctx.model_axis}")
+    for c in counters.values():
+        c.reset()
+    args.steps = DIST_STEPS
+    torch.cuda.reset_peak_memory_stats()
+    records = train_mod.run(state, args)
+    peak = torch.cuda.max_memory_allocated()
+    launches = {name: c.value for name, c in counters.items()}
+    tokens = args.batch * args.seq
+    for r, w in zip(records, ref["steps"]):
+        rel_l, rel_g = abs(r["loss"] / w["loss"] - 1), abs(r["grad_norm"] / w["grad_norm"] - 1)
+        print(f"mesh step {r['step']}: loss {r['loss']!r} (phase 24 {w['loss']!r}, relative "
+              f"{rel_l:.3g}); grad_norm {r['grad_norm']!r} ({w['grad_norm']!r}, {rel_g:.3g}); "
+              f"{r['seconds']:.3f} s, {tokens / r['seconds']:.0f} tokens/s (phase 24 "
+              f"{w['seconds']:.3f} s, {tokens / w['seconds']:.0f})")
+        check(rel_l <= 1e-4 and rel_g <= 1e-4,
+              f"mesh step {r['step']}: loss and grad_norm within 1e-4 of phase 24's")
+    print(f"max_memory_allocated {peak / 2**30:.3f} GiB (phase 24: {ref['peak_gib']:.3f} GiB, "
+          f"relative {peak / 2**30 / ref['peak_gib'] - 1:+.4f})")
+    check(not any(launches.values()), f"no kernel launched while training: {launches}")
+
+    # the compressed DP reducer on one microbatch's gradients
+    mb = {k: torch.from_numpy(v[:1]).cuda() for k, v in state["pipe"].batch_at(DIST_STEPS).items()}
+    req = tree_mod.tree_map(lambda p: p.detach().requires_grad_(True), state["params"])
+    loss = forward_train(cfg, cast_for_compute(req), place_batch(mb, ctx), ctx)
+    with replicate_plain(ctx):  # the backward, as make_train_step runs it
+        grads = torch.autograd.grad(loss, tree_mod.leaves(req))
+    del req, loss
+    for scheme in ("bf16", "int8"):
+        t0 = time.perf_counter()
+        red = make_dp_grad_reducer(mesh, ctx.dp, scheme)(list(grads))
+        torch.cuda.synchronize()
+        red_s = time.perf_counter() - t0
+        same = all(torch.equal(r.to_local(), compress_decompress(g.to_local(), scheme))
+                   for r, g in zip(red, grads))
+        print(f"make_dp_grad_reducer(mesh, {ctx.dp}, {scheme!r}) over {len(grads)} gradient "
+              f"leaves ({sum(g.numel() for g in grads)} elements): {red_s:.3f} s, equal to "
+              f"compress_decompress: {same}")
+        check(same, f"the {scheme} reducer's mean == compress_decompress on one rank")
+        del red
+    del grads
+
+    # checkpoint the placed state; resume it on a fresh (1, 1) mesh
+    root = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_dist_"))
+    try:
+        tree = (state["params"], state["opt_state"])
+        t0 = time.perf_counter()
+        Checkpointer(root).save(DIST_STEPS, tree, metadata={"pipeline": state["pipe"].state()})
+        save_s = time.perf_counter() - t0
+        fresh = make_mesh_from_devices((1, 1), ("data", "model"))
+        t0 = time.perf_counter()
+        resumed, meta = resume_on_mesh(Checkpointer(root), tree, fresh, mode="train")
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        pairs = list(zip(tree_mod.leaves(tree), tree_mod.leaves(resumed)))
+        equal = all(torch.equal(a.to_local(), b.to_local()) for a, b in pairs)
+        placed = all(b.device_mesh is fresh and b.placements == a.placements for a, b in pairs)
+        print(f"checkpoint of the placed state: {len(pairs)} leaves saved in {save_s:.3f} s; "
+              f"resume_on_mesh on a fresh (1, 1) mesh in {resume_s:.3f} s; bit-equal {equal}, "
+              f"laid out on the fresh mesh as before {placed}; pipeline step "
+              f"{meta['pipeline']['step']}")
+        check(equal and placed, "the resumed leaves equal the saved ones, on the fresh mesh")
+        del resumed, pairs, tree
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # the same step off the mesh, in this process, on the state's local
+    # tensors: the DTensor layer's cost with the host as the mesh steps had it
+    mb = {k: torch.from_numpy(v).cuda() for k, v in state["pipe"].batch_at(DIST_STEPS).items()}
+    p, o = tree_mod.tree_map(lambda t: t.to_local(), (state["params"], state["opt_state"]))
+    del state
+    gc.collect()
+    plain_step = make_train_step(cfg, None, opt_cfg, microbatches=args.microbatches)
+    plain_s = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        p, o, _ = plain_step(p, o, mb)
+        torch.cuda.synchronize()
+        plain_s.append(time.perf_counter() - t0)
+    mesh_s = ", ".join(f"{r['seconds']:.3f}" for r in records)
+    print(f"ctx=None steps in this process on the state's local tensors: "
+          f"{', '.join(f'{x:.3f}' for x in plain_s)} s (mesh steps {mesh_s} s)")
+    del p, o, mb
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"steps": records, "peak_gib": peak / 2**30, "plain_s": plain_s}
+
+
+def dist_serve(mesh, counters):
+    """Phase 26 (b): granite_moe_1b_a400m at full width on the (1, 1) mesh
+    under the serve ctx (the MoE's local_map serve branch, attention on
+    the tensor-core kernel inside local_map): ``prefill`` of a 4096-token
+    prompt and 4 ``decode_step`` calls, and the same through
+    ``make_prefill_step`` / ``make_decode_step``, held to the ``ctx=None``
+    runs on the same weights; each timed entry-point run follows a first,
+    untimed one. Returns the kernels' launches on the mesh."""
+    from repro_torch import tree as tree_mod
+    from repro_torch.configs import get_config
+    from repro_torch.dist import make_ctx, param_shardings
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.runtime.elastic import reshard_tree
+
+    cfg = get_config("granite_moe_1b_a400m")
+    sctx = make_ctx(mesh, mode="serve")
+    params = init_params(cfg, 0)
+    dparams = reshard_tree(params, param_shardings(params, sctx))
+    batch = lm_batch(cfg, DIST_PROMPT, seed=0, device="cuda")
+    max_len = DIST_PROMPT + DIST_DECODE
+    slots, dropped = moe_mod.slots, []
+
+    def counting(gidx, e, cap):
+        slot, keep = slots(gidx, e, cap)
+        dropped.append(int((~keep).sum()))
+        return slot, keep
+
+    def entry_points(p, ctx):
+        """Logits and caches of prefill and each decode step, seconds, drops."""
+        dropped.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache, n = prefill(cfg, p, batch, max_len, ctx)
+        torch.cuda.synchronize()
+        secs, outs = [time.perf_counter() - t0], [(logits, cache)]
+        drops = list(dropped)
+        for i in range(DIST_DECODE):
+            tok = torch.argmax(logits.full_tensor() if ctx else logits, dim=-1)[:, None]
+            t0 = time.perf_counter()
+            logits, cache = decode_step(cfg, p, {"tokens": tok}, cache, n + i, ctx)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            outs.append((logits, cache))
+        return outs, secs, drops
+
+    def steps(p, ctx):
+        tok, cache = make_prefill_step(cfg, ctx, max_len)(p, batch)
+        toks = [tok]
+        for i in range(DIST_DECODE):
+            tok, cache = make_decode_step(cfg, ctx)(p, cache, {"tokens": tok}, DIST_PROMPT + i)
+            toks.append(tok)
+        return toks, cache
+
+    plain = lambda t: t.full_tensor() if hasattr(t, "full_tensor") else t
+    moe_mod.slots = counting
+    try:
+        with torch.no_grad():
+            # each timed run after a first one (modules, DTensor's caches)
+            entry_points(params, None)
+            want, want_s, want_drops = entry_points(params, None)
+            for c in counters.values():
+                c.reset()
+            entry_points(dparams, sctx)
+            got, got_s, got_drops = entry_points(dparams, sctx)
+            got_toks, got_cache = steps(dparams, sctx)
+            launches = {name: c.value for name, c in counters.items()}
+            want_toks, want_cache = steps(params, None)
+    finally:
+        moe_mod.slots = slots
+    for i, ((lg, c), (wl, wc)) in enumerate(zip(got, want)):
+        d = float((plain(lg) - wl).abs().max())
+        bar = 1e-3 * float(wl.abs().max())
+        cd = max(float((plain(a).float() - b.float()).abs().max())
+                 for a, b in zip(tree_mod.leaves(c), tree_mod.leaves(wc)))
+        what = "prefill" if i == 0 else f"decode {i}"
+        print(f"{what}: logits max |diff| {d!r} (bar {bar:.4g}); caches max |diff| {cd!r}; "
+              f"mesh {got_s[i] * 1e3:.2f} ms, ctx=None {want_s[i] * 1e3:.2f} ms")
+        check(d <= bar and cd <= bar, f"{what}: logits and caches within 1e-3 max|logits|")
+    print(f"dropped token slots by layer: mesh {sum(got_drops)} {got_drops}; ctx=None "
+          f"{sum(want_drops)}")
+    check(got_drops == want_drops and len(got_drops) == cfg.num_layers, "dropped slots equal")
+    same_toks = all(torch.equal(a, b) for a, b in zip(got_toks, want_toks))
+    cache_d = max(float((plain(a).float() - b.float()).abs().max())
+                  for a, b in zip(tree_mod.leaves(got_cache), tree_mod.leaves(want_cache)))
+    layout = [list(t.placements) for t in tree_mod.leaves(got_cache)]
+    print(f"make_prefill_step + {DIST_DECODE} make_decode_step: tokens equal {same_toks} "
+          f"{[int(t[0, 0]) for t in got_toks]}; caches max |diff| {cache_d!r}, laid out "
+          f"{layout[0]} by cache_shardings")
+    bar = 1e-3 * float(want[0][0].abs().max())
+    check(same_toks and cache_d <= bar, "the steps' tokens equal ctx=None's, caches within "
+          "1e-3 max|logits|")
+    print(f"kernel launches on the mesh (3 prefills of {cfg.num_layers} layers): {launches}")
+    check(launches["flash_attention_wgmma"] == 3 * cfg.num_layers
+          and launches["flash_attention"] == 0,
+          "every mesh prefill attention on the tensor-core kernel, inside local_map")
+    del params, dparams, got, want
+    torch.cuda.empty_cache()
+    return launches
+
+
+def dist_child(ref_json: str) -> int:
+    """Phase 26 in a process of its own (a fresh CUDA context, as phase
+    24): an NCCL world of one and a (1, 1) mesh; (a) then (b). Prints its
+    results as the last line, a JSON object."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch.distributed as dist
+
+    from repro_torch.kernels import flash_attention, morph_recon, ssm_scan
+    from repro_torch.launch.mesh import make_mesh_from_devices
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    counters = {"morph_recon": morph_recon.LAUNCHES, "ssm_scan": ssm_scan.LAUNCHES,
+                "flash_attention": flash_attention.LAUNCHES,
+                "flash_attention_wgmma": flash_attention.WGMMA_LAUNCHES}
+    t0 = time.perf_counter()
+    mesh = make_mesh_from_devices((1, 1), ("data", "model"))
+    print(f"process {os.getpid()} on {torch.cuda.get_device_name(0)}: world of "
+          f"{dist.get_world_size()} over {dist.get_backend()}, {mesh} in "
+          f"{time.perf_counter() - t0:.3f} s")
+    check(dist.get_backend() == "nccl" and dist.get_world_size() == 1, "an NCCL world of one")
+    try:
+        print("-- (a) training on the mesh")
+        train = dist_train(mesh, json.loads(ref_json), counters)
+        print("-- (b) serving on the mesh")
+        serve = dist_serve(mesh, counters)
+    finally:
+        dist.destroy_process_group()
+    print(json.dumps({"train": train, "launches": serve}), flush=True)
+    return 0
+
+
+def dist_phase(ref):
+    """Phase 26: the child process of (a) and (b), alone on the host, so
+    that its timed steps share the CPU with no other process of the script;
+    then (c): the launcher's ``--mesh single`` (256 ranks needed) and one
+    dry-run cell on a fake 16×16 world (meta tensors, the card hidden from
+    it), side by side. Returns the child's launches."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    child = subprocess.run(
+        [sys.executable, "-c", "import sys, chip_smoke; sys.exit(chip_smoke.dist_child("
+         "sys.argv[1]))", json.dumps(ref)], cwd=ROOT, capture_output=True, text=True,
+        timeout=300)
+    print(child.stdout, end="")
+    check(child.returncode == 0, f"the distribution process exited {child.returncode}:\n"
+          f"{child.stderr[-4000:]}")
+    print("-- (c) the launcher and the dry-run")
+    out_dir = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
+    t0 = time.perf_counter()
+    dry = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *DRYRUN_ARGS, "--out",
+         str(out_dir / "dryrun.json")], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env={**env, "CUDA_VISIBLE_DEVICES": ""})
+    launcher = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train", "--mesh", "single"], cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+    try:
+        l_out, l_err = launcher.communicate(timeout=120)
+        msg = (l_err.strip().splitlines() or [""])[-1]
+        print(f"python -m repro_torch.launch.train --mesh single: exit {launcher.returncode}; "
+              f"{msg}")
+        check(launcher.returncode != 0 and "ValueError: mesh (16, 16) needs 256 ranks, only 1 "
+              "available" in msg, "the launcher's --mesh single raises: 256 ranks needed, 1 "
+              "available")
+        d_out, d_err = dry.communicate(timeout=240)
+        check(dry.returncode == 0, f"the dry-run exited {dry.returncode}:\n{d_err[-3000:]}")
+        (rec,) = json.loads((out_dir / "dryrun.json").read_text())
+        print(f"python -m repro_torch.launch.dryrun {' '.join(DRYRUN_ARGS)}: status "
+              f"{rec['status']}, n_chips {rec.get('n_chips')}, bytes_per_device "
+              f"{rec.get('bytes_per_device')}, compute_s {rec.get('compute_s')!r}, memory_s "
+              f"{rec.get('memory_s')!r}, collective_s {rec.get('collective_s')!r}, dominant "
+              f"{rec.get('dominant')}, hlo_flops_per_chip {rec.get('hlo_flops_per_chip')!r}, "
+              f"useful_flops_ratio {rec.get('useful_flops_ratio')!r}, collectives "
+              f"{rec.get('collectives')}, set-up {rec.get('lower_s')} s, step "
+              f"{rec.get('compile_s')} s, {time.perf_counter() - t0:.1f} s with the launcher "
+              "(the card hidden from it)")
+        check(rec["status"] == "ok" and rec["n_chips"] == 256, "the dry-run cell is ok on 256 "
+              "fake ranks")
+    finally:
+        for p in (dry, launcher):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(out_dir, ignore_errors=True)
+    return json.loads(child.stdout.strip().splitlines()[-1])
 
 
 T0 = time.perf_counter()
@@ -2303,8 +2657,10 @@ def main() -> int:
 
     # -- 16. the dataset study on process workers -------------------------------
     phase(f"16 dataset study on process workers: run_dataset_study(backend='process') over "
-          f"{DATASET_TILES} tiles of {SIZE}x{SIZE}, two spawn workers")
-    recon_launches.update(process_dataset_study(pipeline, tiles, dsets, ds14, counters))
+          f"{PROCESS_TILES} of phase 14's tiles of {SIZE}x{SIZE}, two spawn workers")
+    print(f"cut: {PROCESS_TILES} of the {DATASET_TILES} tiles (store spills set the time)")
+    recon_launches.update(process_dataset_study(pipeline, tiles[:PROCESS_TILES], dsets, ds14,
+                                                counters))
     torch.cuda.empty_cache()
 
     # -- 17. the one-tile study on socket workers -------------------------------
@@ -2315,7 +2671,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 18. the fleet ---------------------------------------------------------
-    phase(f"18 fleet: run_fleet_study(n_procs=2, size={SIZE}, n_tiles=1, max_rounds=2) against "
+    phase(f"18 fleet: run_fleet_study(n_procs=2, size={SIZE}, n_tiles=1, "
+          f"max_rounds={FLEET_ROUNDS}) against "
           f"one in-process StudyDriver")
     recon_launches.update(fleet_study(pipeline, counters, (task_s, task_n, task_lock, task_streams)))
     torch.cuda.empty_cache()
@@ -2423,7 +2780,8 @@ def main() -> int:
     print(child.stdout, end="")
     check(child.returncode == 0, f"the training process exited {child.returncode}:\n"
           f"{child.stderr[-4000:]}")
-    train_launches = json.loads(child.stdout.strip().splitlines()[-1])["launches"]
+    train_out = json.loads(child.stdout.strip().splitlines()[-1])
+    train_launches = train_out["launches"]
     recon_launches["train"] = train_launches["morph_recon"]
     launches["train"] = train_launches["ssm_scan"]
     simt_by_path["train"] = train_launches["flash_attention"]
@@ -2435,7 +2793,19 @@ def main() -> int:
     for arch in TRAIN_ARCHS:
         train_card_vs_cpu(arch, configs, models, steps_mod, optim, data_mod, tree_mod)
 
+    # -- 26. distribution on one H100 ---------------------------------------------
+    phase("26 distribution: an NCCL world of one, a (1, 1) mesh: gemma3_1b training and "
+          "granite_moe_1b_a400m serving on it, the launcher's --mesh single, a dry-run cell")
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist_out = dist_phase(train_out["ref"])
+    recon_launches["dist"] = dist_out["launches"]["morph_recon"]
+    launches["dist"] = dist_out["launches"]["ssm_scan"]
+    simt_by_path["dist_serve"] = dist_out["launches"]["flash_attention"]
+    wgmma_by_path["dist_serve"] = dist_out["launches"]["flash_attention_wgmma"]
+
     # -- results -----------------------------------------------------------
+    phase("end")
     ms_k, ms_p, bound = timing[(f"seg2 {SIZE}x{SIZE}", int(default["RC"]))][:3]
     print(json.dumps({"kernels": [{
         "name": "morph_recon",

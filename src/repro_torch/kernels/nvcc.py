@@ -103,9 +103,17 @@ def check_forward_only(kernel: str, *inputs: "torch.Tensor") -> None:
     """Raises where autograd would need a gradient of the kernel's output:
     its result is written into a fresh tensor outside autograd, so the
     gradient would be dropped without a word. Training runs the kernels'
-    plain versions (``train=True`` in the models)."""
+    plain versions (``train=True`` in the models). Raises too on a DTensor:
+    a kernel takes local tensors only."""
     import torch
 
+    if torch.distributed.is_available():
+        from torch.distributed.tensor import DTensor
+
+        if any(isinstance(t, DTensor) for t in inputs):
+            raise TypeError(
+                f"{kernel}: a DTensor reached the kernel; on a mesh the kernel takes each "
+                "rank's local tensors (repro_torch.dist.shard_map_compat, local_map)")
     if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
         raise RuntimeError(
             f"{kernel}: an input requires a gradient, and the kernel has no backward pass; "

@@ -1,17 +1,23 @@
-"""Training launcher, the JAX package's ``repro.launch.train`` on one
-device:
+"""Training launcher, the JAX package's ``repro.launch.train``:
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3_1b \
         --seq 4096 --batch 2 --microbatches 2 --steps 4 [--ckpt-dir DIR] \
-        [--reduced] [--device cpu]
+        [--reduced] [--device cpu] [--mesh none|single|multi]
 
 fp32 master weights (``init_params(..., masters=True)``, seed 0), AdamW,
 the deterministic token pipeline (seed 0), and, with ``--ckpt-dir``, a
 checkpoint every ``--ckpt-every`` steps and at the end; a run finding a
 checkpoint there resumes from the newest, the pipeline's state included.
-It runs on the card unless ``--device`` names another device. ``--mesh``
-takes only ``none``: the port has no device mesh yet (``dist/sharding.py``
-is not ported; ROADMAP.md, Queue 1 item 2).
+It runs on the card unless ``--device`` names another device.
+
+``--mesh single`` (16×16 ``data, model``) and ``multi`` (2×16×16 with
+``pod``) lay the masters and AdamW state out by ``param_shardings`` on the
+production mesh (``launch.mesh.make_production_mesh``) over a ``torchrun``
+world of 256 or 512 ranks (``torchrun --nproc-per-node ... -m
+repro_torch.launch.train --mesh single``: the process group comes from its
+environment); with fewer ranks it raises ``ValueError``, naming the ranks
+needed and available, as JAX does with fewer devices. ``--device`` then
+picks the mesh's device type (the card: NCCL; ``cpu``: gloo).
 """
 
 from __future__ import annotations
@@ -28,7 +34,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--arch", default="yi_6b")
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--reduced", action="store_true")
-    ap.add_argument("--mesh", default="none", choices=["none", "single", "multi"])
+    ap.add_argument("--mesh", default="none", choices=["none", "single", "multi"],
+                    help="none: one device; single: the 16x16 mesh (256 ranks); multi: "
+                         "2x16x16 (512 ranks), from torchrun's environment")
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--seq", type=int, default=64)
@@ -45,19 +53,22 @@ def setup(args: argparse.Namespace) -> Dict[str, Any]:
     AdamW state (restored from the newest checkpoint under ``--ckpt-dir``
     where there is one), token pipeline, checkpointer, step function, and
     ``start``, the first step to run."""
-    if args.mesh != "none":
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: the port runs on one device; device meshes "
-            "(dist/sharding.py) are not ported yet (ROADMAP.md, Queue 1 item 2)")
     from repro_torch.checkpoint import Checkpointer
     from repro_torch.configs import SHAPES, get_config, reduced_config
     from repro_torch.data import TokenPipeline
     from repro_torch.device import resolve_device
+    from repro_torch.dist import make_ctx, param_shardings
+    from repro_torch.launch.mesh import make_production_mesh
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import init_params
     from repro_torch.optim import OptConfig, adamw_init
+    from repro_torch.runtime.elastic import reshard_tree
 
     device = resolve_device(args.device)
+    mesh = None
+    if args.mesh != "none":
+        mesh = make_production_mesh(multi_pod=args.mesh == "multi", device_type=device.type)
+    ctx = make_ctx(mesh, mode="train") if mesh is not None else None
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced_config(cfg)
@@ -72,10 +83,13 @@ def setup(args: argparse.Namespace) -> Dict[str, Any]:
         pipe.restore(meta["pipeline"])
         start = pipe.step
         print(f"[train] resumed at step {start}")
+    if mesh is not None:
+        params, opt_state = reshard_tree((params, opt_state),
+                                         param_shardings((params, opt_state), ctx))
     opt_cfg = OptConfig(lr=args.lr, total_steps=args.steps)
-    step_fn = make_train_step(cfg, None, opt_cfg, microbatches=args.microbatches)
+    step_fn = make_train_step(cfg, ctx, opt_cfg, microbatches=args.microbatches)
     return dict(cfg=cfg, device=device, params=params, opt_state=opt_state, pipe=pipe,
-                ckpt=ckpt, start=start, step_fn=step_fn)
+                ckpt=ckpt, start=start, step_fn=step_fn, ctx=ctx)
 
 
 def run(state: Dict[str, Any], args: argparse.Namespace) -> List[Dict[str, float]]:

@@ -18,13 +18,22 @@ fp32 sums, and so does training (``train=True``) on either device: the
 kernels compute no gradient, and the JAX package's ``forward_train``
 differentiates this arithmetic on every backend. Decode is plain PyTorch on
 either device, as the JAX package computes it.
+
+On a mesh (``ctx``, :mod:`repro_torch.dist`) both run on each rank's shard
+through ``local_map``: batch over the data-parallel axes and heads over
+'model' where they divide (:func:`repro_torch.dist.sharding.qkv_spec`), so
+the kernels see local tensors. Where the q heads are split over 'model' and
+the kv heads are not, each rank takes the kv heads of its own q heads.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.sharding import mesh_axes, on_mesh, qkv_spec, shard_map_compat
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.models.layers import COMPUTE_DTYPE
@@ -42,6 +51,32 @@ def _scale(q: torch.Tensor) -> float:
     return float(torch.tensor(1.0 / (q.shape[-1] ** 0.5), dtype=q.dtype))
 
 
+def _on_shards(fn, ctx, q, k, v):
+    """``fn(q, k, v)`` on each rank's shard of (B, S, heads, D) tensors:
+    batch over dp and heads over 'model' where they divide; the output is
+    laid out as q. Where q's heads are split and k's are not, each rank
+    passes ``fn`` the kv heads of its q heads (whole groups cannot occur
+    there: they would make 'model' divide the kv heads)."""
+    qspec, kvspec = qkv_spec(ctx, q.shape), qkv_spec(ctx, k.shape)
+    rep = q.shape[2] // k.shape[2]
+    pick = None
+    if qspec[2] is not None and kvspec[2] is None:
+        hl = q.shape[2] // mesh_axes(ctx.mesh)[ctx.model_axis]
+        lo = ctx.mesh.get_local_rank(ctx.model_axis) * hl
+        if rep % hl == 0:  # part of one group: its kv head
+            pick = slice(lo // rep, lo // rep + 1)
+        else:  # groups cut across: each q head its own kv head
+            pick = torch.arange(lo, lo + hl) // rep
+
+    def local(ql, kl, vl):
+        if pick is not None:
+            kl, vl = kl[:, :, pick], vl[:, :, pick]
+        return fn(ql, kl, vl)
+
+    return shard_map_compat(local, mesh=ctx.mesh, in_specs=(qspec, kvspec, kvspec),
+                            out_specs=qspec)(q, k, v)
+
+
 def blocked_attention(
     q: torch.Tensor,  # (B, Sq, H, D)
     k: torch.Tensor,  # (B, Sk, KV, D)
@@ -52,11 +87,17 @@ def blocked_attention(
     prefix_len: int = 0,  # bidirectional prefix (PaliGemma prefix-LM)
     chunk: int = 1024,
     train: bool = False,  # the differentiable route, on either device
+    ctx=None,  # ParallelCtx (repro_torch.dist) or None
 ) -> torch.Tensor:
     """Causal (+ sliding-window / prefix-LM) attention with an fp32
     streaming softmax. On the card, unless ``train``: the kernels. On the
     CPU, and for training: the JAX package's arithmetic over key chunks of
-    ``chunk``, which autograd differentiates."""
+    ``chunk``, which autograd differentiates. On a mesh: the same on each
+    rank's shard."""
+    if on_mesh(ctx):
+        fn = functools.partial(blocked_attention, window=window, q_offset=q_offset,
+                               prefix_len=prefix_len, chunk=chunk, train=train)
+        return _on_shards(fn, ctx, q, k, v)
     b, sq, h, d = q.shape
     sk, kv = k.shape[1], k.shape[2]
     if not train and kops._on_card(q, None):
@@ -104,9 +145,13 @@ def decode_attention(
     cur_len: int,  # number of valid cache positions
     *,
     window: int,  # full = S
+    ctx=None,  # ParallelCtx (repro_torch.dist) or None
 ) -> torch.Tensor:
     """One-token attention against the full cache, masked to the valid
-    positions within the window."""
+    positions within the window; on a mesh, on each rank's shard."""
+    if on_mesh(ctx):
+        fn = functools.partial(decode_attention, cur_len=cur_len, window=window)
+        return _on_shards(fn, ctx, q, k_cache, v_cache)
     b, _, h, d = q.shape
     s, kv = k_cache.shape[1], k_cache.shape[2]
     rep = h // kv

@@ -33,6 +33,17 @@ parameters a token. Everything else (norms, biases, decays, skips, the MoE
 router) stays fp32. For training, ``masters=True`` keeps every leaf in
 fp32, as the JAX package's ``init_params`` returns them; the train step casts
 them for each forward (:func:`repro_torch.launch.steps.cast_for_compute`).
+
+``ctx`` (a :class:`repro_torch.dist.ParallelCtx`) is None on one device.
+On a mesh the parameters and inputs are DTensors and the model runs on
+DTensors: the hidden stream is laid out batch over the data-parallel axes
+(``constrain_hidden``), q, k and v heads over 'model' (``constrain_qkv``),
+attention, the SSM scans and the MoE dispatch run on each rank's shard
+through ``local_map``, and the plain tensors the model makes itself
+(positions, masks, caches) enter as replicated
+(``dist.sharding.replicate_plain``). The outputs are DTensors, the training
+loss a plain scalar on every rank. ``ctx.analysis`` stubs the SSM scan,
+whose cost the dry-run adds in closed form.
 """
 
 from __future__ import annotations
@@ -47,10 +58,12 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.dist.sharding import (P, as_dtensor, batch_spec, constrain_hidden, constrain_qkv,
+                                       on_mesh, placements, replicate_plain, shard_map_compat)
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import blocked_attention, decode_attention
 from repro_torch.models.layers import (COMPUTE_DTYPE, apply_rope, cross_entropy, dense_ffn,
-                                      matmul, normal_init, rms_norm)
+                                      matmul, normal_init, rms_norm, token_nll)
 from repro_torch.models.moe import moe_ffn
 
 __all__ = ["init_params", "params_from_jax", "forward_train", "init_cache", "prefill",
@@ -74,9 +87,8 @@ def _check_family(cfg: ModelConfig) -> None:
         raise ValueError(cfg.family)
 
 
-def _check_ctx(ctx) -> None:
-    if ctx is not None:
-        raise NotImplementedError("ctx: the port runs on one device; only ctx=None")
+def _analysis(ctx) -> bool:
+    return bool(ctx is not None and getattr(ctx, "analysis", False))
 
 
 # ---------------------------------------------------------------------------
@@ -193,10 +205,13 @@ def init_params(
     seeded ``torch.Generator``: :data:`BF16_WEIGHTS` in bf16 for serving,
     or every leaf in fp32 with ``masters`` (for training; the same draws).
     The draws differ from ``jax.random``'s; use :func:`params_from_jax` to
-    compute what the JAX package computes."""
+    compute what the JAX package computes. On ``device="meta"`` nothing is
+    drawn: the leaves carry shapes and dtypes only."""
     _check_family(cfg)
     dev = resolve_device(device)
-    if isinstance(seed_or_generator, torch.Generator):
+    if dev.type == "meta":  # shapes and dtypes only: nothing is drawn
+        gen = None
+    elif isinstance(seed_or_generator, torch.Generator):
         gen = seed_or_generator
         if gen.device.type != dev.type:
             raise ValueError(f"generator on {gen.device}, parameters on {dev}")
@@ -272,9 +287,17 @@ def _depth(tree) -> int:
     return _depth(leaf) if isinstance(leaf, dict) else leaf.shape[0]
 
 
-def _embed(params, tokens: torch.Tensor) -> torch.Tensor:
+def _embed(params, tokens: torch.Tensor, ctx=None) -> torch.Tensor:
+    """The tokens' rows of the embedding, in bf16. On a mesh, a lookup on
+    each rank's tokens (batch over dp) in the gathered table: the same
+    local index and, in the backward, the same local scatter as off-mesh."""
     emb = params["embed"]
-    return emb[tokens.to(device=emb.device, dtype=torch.long)].to(COMPUTE_DTYPE)
+    idx = tokens.to(device=emb.device, dtype=torch.long)
+    if not on_mesh(ctx):
+        return emb[idx].to(COMPUTE_DTYPE)
+    spec = batch_spec(ctx, idx.shape)
+    return shard_map_compat(lambda e, i: e[i].to(COMPUTE_DTYPE), mesh=ctx.mesh,
+                            in_specs=(P(None, None), spec), out_specs=P(*spec, None))(emb, idx)
 
 
 def _logits(cfg: ModelConfig, params, x_last: torch.Tensor) -> torch.Tensor:
@@ -284,18 +307,18 @@ def _logits(cfg: ModelConfig, params, x_last: torch.Tensor) -> torch.Tensor:
     return matmul(x_last, params["lm_head"]).float()
 
 
-def _embed_step(cfg: ModelConfig, params, batch) -> torch.Tensor:
+def _embed_step(cfg: ModelConfig, params, batch, ctx=None) -> torch.Tensor:
     """(B, S, D) bf16: audio's frame embeddings, else the tokens'
     embeddings. What a decode step takes."""
     if cfg.family == "audio":
         return batch["frame_embeds"].to(params["lm_head"].device, COMPUTE_DTYPE)
-    return _embed(params, batch["tokens"])
+    return _embed(params, batch["tokens"], ctx)
 
 
-def _embed_inputs(cfg: ModelConfig, params, batch):
+def _embed_inputs(cfg: ModelConfig, params, batch, ctx=None):
     """Returns (hidden (B, S, D) bf16, prefix_len): :func:`_embed_step`'s,
     after vlm's patch embeddings for a prompt."""
-    tok = _embed_step(cfg, params, batch)
+    tok = _embed_step(cfg, params, batch, ctx)
     if cfg.family == "vlm":
         patches = batch["patch_embeds"].to(tok.device, COMPUTE_DTYPE)
         return torch.cat([patches, tok], dim=1), cfg.num_patches
@@ -318,26 +341,29 @@ def _attn_qkv(x, p, cfg: ModelConfig, positions):
     return apply_rope(q, positions, cfg.rope_theta), apply_rope(k, positions, cfg.rope_theta), v
 
 
-def _attn_block(x, p, cfg: ModelConfig, *, window, positions, prefix_len=0, train=False):
+def _attn_block(x, p, cfg: ModelConfig, *, window, positions, prefix_len=0, train=False,
+                ctx=None):
     """Returns (x + attention, (k, v)): the keys and values for the cache.
     ``train`` takes attention's differentiable route."""
     b, s, _ = x.shape
-    q, k, v = _attn_qkv(x, p, cfg, positions)
-    o = blocked_attention(q, k, v, window=window, prefix_len=prefix_len, train=train)
+    q, k, v = constrain_qkv(*_attn_qkv(x, p, cfg, positions), ctx)
+    o = blocked_attention(q, k, v, window=window, prefix_len=prefix_len, train=train, ctx=ctx)
     x = x + matmul(o.reshape(b, s, -1), p["wo"])
     return x, (k, v)
 
 
-def _ffn_block(x, p, cfg: ModelConfig):
+def _ffn_block(x, p, cfg: ModelConfig, ctx=None):
     a = rms_norm(x, p["ln2"], cfg.norm_eps)
     if cfg.num_experts:
-        y = moe_ffn(a, p, k=cfg.experts_per_token, capacity_factor=cfg.moe_capacity_factor)
+        y = moe_ffn(a, p, k=cfg.experts_per_token, capacity_factor=cfg.moe_capacity_factor,
+                    ctx=ctx)
     else:
         y = dense_ffn(a, p["w_gate"], p["w_up"], p["w_down"])
     return x + y
 
 
-def _decode_attn_layer(x, p, cfg: ModelConfig, kc, vc, cur_len: int, window: int, positions):
+def _decode_attn_layer(x, p, cfg: ModelConfig, kc, vc, cur_len: int, window: int, positions,
+                       ctx=None):
     """One decode attention block against a (B,S,KV,hd) cache layer. Writes
     the token's k and v at ``cur_len`` into ``kc`` and ``vc`` in place: the
     caller passes a fresh copy."""
@@ -345,7 +371,7 @@ def _decode_attn_layer(x, p, cfg: ModelConfig, kc, vc, cur_len: int, window: int
     q, k, v = _attn_qkv(x, p, cfg, positions)
     kc[:, cur_len] = k[:, 0].to(kc.dtype)
     vc[:, cur_len] = v[:, 0].to(vc.dtype)
-    o = decode_attention(q, kc, vc, cur_len + 1, window=window)
+    o = decode_attention(q, kc, vc, cur_len + 1, window=window, ctx=ctx)
     return x + matmul(o.reshape(b, 1, -1), p["wo"])
 
 
@@ -361,43 +387,46 @@ def _remat(fn, *args):
     return checkpoint(fn, *args, use_reentrant=False)
 
 
-def _transformer_layer(x, p, cfg: ModelConfig, window: int, positions, prefix_len: int):
+def _transformer_layer(x, p, cfg: ModelConfig, window: int, positions, prefix_len: int,
+                       ctx=None):
     x, _ = _attn_block(x, p, cfg, window=window, positions=positions, prefix_len=prefix_len,
-                       train=True)
-    return _ffn_block(x, p, cfg)
+                       train=True, ctx=ctx)
+    return _ffn_block(x, p, cfg, ctx)
 
 
-def _mamba_layer(x, p, cfg: ModelConfig):
-    return x + ssm_mod.mamba2_block(rms_norm(x, p["ln"], cfg.norm_eps), p, cfg, train=True)
+def _mamba_layer(x, p, cfg: ModelConfig, ctx=None):
+    return x + ssm_mod.mamba2_block(rms_norm(x, p["ln"], cfg.norm_eps), p, cfg, train=True,
+                                    analysis=_analysis(ctx), ctx=ctx)
 
 
-def _hybrid_super_block(x, mp, shared, cfg: ModelConfig, positions):
+def _hybrid_super_block(x, mp, shared, cfg: ModelConfig, positions, ctx=None):
     """Six Mamba2 layers, then the shared attention+MLP block."""
     for j in range(_depth(mp)):
-        x = _mamba_layer(x, _unstack(mp, j), cfg)
-    return _transformer_layer(x, shared, cfg, x.shape[1], positions, 0)
+        x = _mamba_layer(x, _unstack(mp, j), cfg, ctx)
+    return _transformer_layer(x, shared, cfg, x.shape[1], positions, 0, ctx)
 
 
-def _rwkv_layer(x, p, cfg: ModelConfig):
-    x = x + ssm_mod.rwkv6_block(rms_norm(x, p["ln1"], cfg.norm_eps), p, cfg, train=True)
+def _rwkv_layer(x, p, cfg: ModelConfig, ctx=None):
+    x = x + ssm_mod.rwkv6_block(rms_norm(x, p["ln1"], cfg.norm_eps), p, cfg, train=True,
+                                analysis=_analysis(ctx), ctx=ctx)
     y, _ = ssm_mod.rwkv6_channel_mix(rms_norm(x, p["ln2"], cfg.norm_eps), p)
     return x + y
 
 
-def _backbone(cfg: ModelConfig, params, x, *, positions, prefix_len: int):
+def _backbone(cfg: ModelConfig, params, x, *, positions, prefix_len: int, ctx=None):
     """Every layer of the stack on the training route, each recomputed in
     the backward pass, then the final norm."""
     if cfg.family in _TRANSFORMERS:
         for i, window in enumerate(cfg.layer_windows(x.shape[1])):
             layer = functools.partial(_transformer_layer, cfg=cfg, window=window,
-                                      positions=positions, prefix_len=prefix_len)
+                                      positions=positions, prefix_len=prefix_len, ctx=ctx)
             x = _remat(layer, x, _unstack(params["layers"], i))
     elif cfg.family == "hybrid":
-        block = functools.partial(_hybrid_super_block, cfg=cfg, positions=positions)
+        block = functools.partial(_hybrid_super_block, cfg=cfg, positions=positions, ctx=ctx)
         for sb in range(_depth(params["mamba"])):
             x = _remat(block, x, _unstack(params["mamba"], sb), params["shared_attn"])
     else:
-        layer = functools.partial(_rwkv_layer, cfg=cfg)
+        layer = functools.partial(_rwkv_layer, cfg=cfg, ctx=ctx)
         for i in range(_depth(params["layers"])):
             x = _remat(layer, x, _unstack(params["layers"], i))
     return rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -408,22 +437,55 @@ def forward_train(cfg: ModelConfig, params, batch, ctx=None) -> torch.Tensor:
     "labels"} (B, S); vlm also {"patch_embeds"} (its loss over the text
     positions only); audio {"frame_embeds": (B, S, D), "labels": (B, S,
     codebooks)}. Labels below 0 are not counted. Differentiable in
-    ``params``; the kernels are not used (see the module docstring)."""
+    ``params``; the kernels are not used (see the module docstring). On a
+    mesh the loss is a plain scalar, the same on every rank, and a caller
+    that differentiates it enters ``dist.sharding.replicate_plain(ctx)``
+    around the backward pass, after this returns
+    (``launch.steps.make_train_step`` does)."""
     _check_family(cfg)
-    _check_ctx(ctx)
-    x, prefix_len = _embed_inputs(cfg, params, batch)
-    b, s, _ = x.shape
-    positions = torch.arange(s, device=x.device).expand(b, s)
-    x = _backbone(cfg, params, x, positions=positions, prefix_len=prefix_len)
-    logits = matmul(x, params["lm_head"])
-    labels = batch["labels"].to(device=x.device, dtype=torch.long)
-    if cfg.family == "audio":
-        logits = logits.reshape(b, s, cfg.num_codebooks, cfg.padded_vocab)
-        return cross_entropy(logits, labels, vocab_size=cfg.vocab_size)
-    if cfg.family == "vlm":
-        logits = logits[:, prefix_len:]  # loss over text positions only
-    return cross_entropy(logits, torch.clamp_min(labels, 0), valid=labels >= 0,
-                         vocab_size=cfg.vocab_size)
+    with replicate_plain(ctx):
+        x, prefix_len = _embed_inputs(cfg, params, batch, ctx)
+        b, s, _ = x.shape
+        positions = torch.arange(s, device=x.device).expand(b, s)
+        x = constrain_hidden(x, cfg, ctx)
+        x = _backbone(cfg, params, x, positions=positions, prefix_len=prefix_len, ctx=ctx)
+        logits = matmul(x, params["lm_head"])
+        labels = batch["labels"].to(device=x.device, dtype=torch.long)
+        if cfg.family == "audio":
+            logits = logits.reshape(b, s, cfg.num_codebooks, cfg.padded_vocab)
+            valid = None
+        else:
+            if cfg.family == "vlm":
+                logits = logits[:, prefix_len:]  # loss over text positions only
+            labels, valid = torch.clamp_min(labels, 0), labels >= 0
+        if not on_mesh(ctx):
+            return cross_entropy(logits, labels, valid=valid, vocab_size=cfg.vocab_size)
+        return _mesh_loss(logits, labels, valid, cfg.vocab_size, ctx)
+
+
+def _mesh_loss(logits, labels, valid, vocab_size: int, ctx) -> torch.Tensor:
+    """:func:`cross_entropy` on a mesh: each rank sums its own tokens' NLL
+    and counts them (``local_map``; the sums are ``Partial`` over the
+    data-parallel axes), so no (B, S, V) tensor leaves its rank in the
+    forward or the backward; the mean is a plain scalar on every rank."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    if valid is None:
+        valid = torch.ones(labels.shape, dtype=torch.bool, device=labels.device)
+    spec = batch_spec(ctx, labels.shape)
+    dp_dims = {i for i, p in enumerate(placements(spec, ctx.mesh)) if isinstance(p, Shard)}
+    sums = [Partial() if i in dp_dims else Replicate() for i in range(ctx.mesh.ndim)]
+
+    def local(lg, lb, vd):
+        v = vd.float()
+        return (token_nll(lg, lb, vocab_size=vocab_size) * v).sum(), v.sum()
+
+    in_pl = tuple(placements(batch_spec(ctx, t.shape), ctx.mesh) for t in (logits, labels, valid))
+    total, count = local_map(local, out_placements=(sums, sums), in_placements=in_pl,
+                             device_mesh=ctx.mesh, redistribute_inputs=True)(
+        *(as_dtensor(t, ctx.mesh) for t in (logits, labels, valid)))
+    return total.full_tensor() / torch.clamp_min(count.full_tensor(), 1.0)
 
 
 # ---------------------------------------------------------------------------
@@ -484,7 +546,7 @@ def _rwkv_decode(cfg: ModelConfig, params, x, cache):
     return x, _stack(news)
 
 
-def _transformer_decode(cfg: ModelConfig, params, x, cache, cur_len: int):
+def _transformer_decode(cfg: ModelConfig, params, x, cache, cur_len: int, ctx=None):
     positions = torch.full((x.shape[0], 1), cur_len, dtype=torch.long, device=x.device)
     # every layer's window, a full one capped as the JAX package caps it
     windows = [min(w, 2**30) for w in cfg.layer_windows(10**9)]
@@ -493,12 +555,12 @@ def _transformer_decode(cfg: ModelConfig, params, x, cache, cur_len: int):
     knew, vnew = cache["k"].clone(), cache["v"].clone()
     for i, window in enumerate(windows):
         p = _unstack(params["layers"], i)
-        x = _decode_attn_layer(x, p, cfg, knew[i], vnew[i], cur_len, window, positions)
-        x = _ffn_block(x, p, cfg)
+        x = _decode_attn_layer(x, p, cfg, knew[i], vnew[i], cur_len, window, positions, ctx)
+        x = _ffn_block(x, p, cfg, ctx)
     return x, {"k": knew, "v": vnew}
 
 
-def _hybrid_decode(cfg: ModelConfig, params, x, cache, cur_len: int):
+def _hybrid_decode(cfg: ModelConfig, params, x, cache, cur_len: int, ctx=None):
     shared = params["shared_attn"]
     positions = torch.full((x.shape[0], 1), cur_len, dtype=torch.long, device=x.device)
     # the given cache is shared by every generate task of its prompt: the
@@ -516,8 +578,9 @@ def _hybrid_decode(cfg: ModelConfig, params, x, cache, cur_len: int):
             x = x + y
             news.append(c1)
         supers.append(_stack(news))
-        x = _decode_attn_layer(x, shared, cfg, knew[sb], vnew[sb], cur_len, 2**30, positions)
-        x = _ffn_block(x, shared, cfg)
+        x = _decode_attn_layer(x, shared, cfg, knew[sb], vnew[sb], cur_len, 2**30, positions,
+                               ctx)
+        x = _ffn_block(x, shared, cfg, ctx)
     return x, {"mamba": _stack(supers), "k": knew, "v": vnew}
 
 
@@ -527,23 +590,24 @@ def decode_step(cfg: ModelConfig, params, batch, cache, cur_len: int, ctx=None):
     (logits fp32 (B, V), audio's (B, codebooks * V), new cache); ``cache``
     is not modified."""
     _check_family(cfg)
-    _check_ctx(ctx)
-    x = _embed_step(cfg, params, batch)
-    if cfg.family in _TRANSFORMERS:
-        x, cache = _transformer_decode(cfg, params, x, cache, int(cur_len))
-    elif cfg.family == "hybrid":
-        x, cache = _hybrid_decode(cfg, params, x, cache, int(cur_len))
-    else:
-        x, cache = _rwkv_decode(cfg, params, x, cache)
-    return _logits(cfg, params, x[:, 0]), cache
+    with replicate_plain(ctx):
+        x = _embed_step(cfg, params, batch, ctx)
+        if cfg.family in _TRANSFORMERS:
+            x, cache = _transformer_decode(cfg, params, x, cache, int(cur_len), ctx)
+        elif cfg.family == "hybrid":
+            x, cache = _hybrid_decode(cfg, params, x, cache, int(cur_len), ctx)
+        else:
+            x, cache = _rwkv_decode(cfg, params, x, cache)
+        return _logits(cfg, params, x[:, 0]), cache
 
 
-def _rwkv_prefill(cfg: ModelConfig, params, x):
+def _rwkv_prefill(cfg: ModelConfig, params, x, ctx=None):
     states, tm_prev, cm_prev = [], [], []
     for i in range(_depth(params["layers"])):
         p = _unstack(params["layers"], i)
         a = rms_norm(x, p["ln1"], cfg.norm_eps)
-        y, state = ssm_mod.rwkv6_block(a, p, cfg, return_state=True)
+        y, state = ssm_mod.rwkv6_block(a, p, cfg, return_state=True, analysis=_analysis(ctx),
+                                       ctx=ctx)
         x = x + y
         z, cm = ssm_mod.rwkv6_channel_mix(rms_norm(x, p["ln2"], cfg.norm_eps), p)
         states.append(state)
@@ -558,23 +622,43 @@ def _rwkv_prefill(cfg: ModelConfig, params, x):
     return x, cache
 
 
-def _transformer_prefill(cfg: ModelConfig, params, x, prefix_len: int, max_len: int):
+def _cache_zeros(shape, like: torch.Tensor) -> torch.Tensor:
+    """bf16 zeros of ``shape``: a stacking dim, then ``like``'s dims with a
+    longer sequence. On a mesh a DTensor laid out as ``like`` (the stacking
+    dim replicated), each rank allocating only its shard."""
+    if not hasattr(like, "placements"):
+        return torch.zeros(shape, dtype=COMPUTE_DTYPE, device=like.device)
+    from torch.distributed.tensor import DTensor, Shard
+
+    pl = [Shard(p.dim + 1) if isinstance(p, Shard) else p for p in like.placements]
+    local = list(shape)
+    for size, p in zip(like.device_mesh.shape, pl):
+        if isinstance(p, Shard):
+            local[p.dim] //= size
+    zeros = torch.zeros(local, dtype=COMPUTE_DTYPE, device=like.to_local().device)
+    stride = torch.empty(shape, device="meta").stride()
+    return DTensor.from_local(zeros, like.device_mesh, pl, run_check=False, shape=torch.Size(shape),
+                              stride=stride)
+
+
+def _transformer_prefill(cfg: ModelConfig, params, x, prefix_len: int, max_len: int,
+                         ctx=None):
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     kv_shape = (cfg.num_layers, b, max_len, cfg.num_kv_heads, cfg.head_dim)
-    kc = torch.zeros(kv_shape, dtype=COMPUTE_DTYPE, device=x.device)
-    vc = torch.zeros(kv_shape, dtype=COMPUTE_DTYPE, device=x.device)
     for i, window in enumerate(cfg.layer_windows(s)):
         p = _unstack(params["layers"], i)
         x, (k, v) = _attn_block(x, p, cfg, window=window, positions=positions,
-                                prefix_len=prefix_len)
-        x = _ffn_block(x, p, cfg)
+                                prefix_len=prefix_len, ctx=ctx)
+        x = _ffn_block(x, p, cfg, ctx)
+        if i == 0:
+            kc, vc = _cache_zeros(kv_shape, k), _cache_zeros(kv_shape, v)
         kc[i, :, :s] = k
         vc[i, :, :s] = v
     return x, {"k": kc, "v": vc}
 
 
-def _hybrid_prefill(cfg: ModelConfig, params, x, max_len: int):
+def _hybrid_prefill(cfg: ModelConfig, params, x, max_len: int, ctx=None):
     shared = params["shared_attn"]
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
@@ -584,19 +668,17 @@ def _hybrid_prefill(cfg: ModelConfig, params, x, max_len: int):
         caches = []
         for j in range(_depth(mp)):
             p = _unstack(mp, j)
-            y, c = ssm_mod.mamba2_block(
-                rms_norm(x, p["ln"], cfg.norm_eps), p, cfg, return_cache=True
-            )
+            y, c = ssm_mod.mamba2_block(rms_norm(x, p["ln"], cfg.norm_eps), p, cfg,
+                                        return_cache=True, analysis=_analysis(ctx), ctx=ctx)
             x = x + y
             caches.append(c)
-        x, (k, v) = _attn_block(x, shared, cfg, window=s, positions=positions)
-        x = _ffn_block(x, shared, cfg)
+        x, (k, v) = _attn_block(x, shared, cfg, window=s, positions=positions, ctx=ctx)
+        x = _ffn_block(x, shared, cfg, ctx)
         supers.append(_stack(caches))
         ks.append(k)
         vs.append(v)
     kv_shape = (len(ks), b, max_len, cfg.num_kv_heads, cfg.head_dim)
-    kc = torch.zeros(kv_shape, dtype=COMPUTE_DTYPE, device=x.device)
-    vc = torch.zeros(kv_shape, dtype=COMPUTE_DTYPE, device=x.device)
+    kc, vc = _cache_zeros(kv_shape, ks[0]), _cache_zeros(kv_shape, vs[0])
     kc[:, :, :s] = torch.stack(ks)
     vc[:, :, :s] = torch.stack(vs)
     return x, {"mamba": _stack(supers), "k": kc, "v": vc}
@@ -608,12 +690,13 @@ def prefill(cfg: ModelConfig, params, batch, max_len: int, ctx=None):
     S)}; vlm also {"patch_embeds": (B, num_patches, D)}, put before the
     tokens; audio {"frame_embeds": (B, S, D)} only."""
     _check_family(cfg)
-    _check_ctx(ctx)
-    x, prefix_len = _embed_inputs(cfg, params, batch)
-    if cfg.family in _TRANSFORMERS:
-        x, cache = _transformer_prefill(cfg, params, x, prefix_len, max_len)
-    elif cfg.family == "hybrid":
-        x, cache = _hybrid_prefill(cfg, params, x, max_len)
-    else:
-        x, cache = _rwkv_prefill(cfg, params, x)
-    return _logits(cfg, params, x[:, -1]), cache, x.shape[1]
+    with replicate_plain(ctx):
+        x, prefix_len = _embed_inputs(cfg, params, batch, ctx)
+        x = constrain_hidden(x, cfg, ctx)
+        if cfg.family in _TRANSFORMERS:
+            x, cache = _transformer_prefill(cfg, params, x, prefix_len, max_len, ctx)
+        elif cfg.family == "hybrid":
+            x, cache = _hybrid_prefill(cfg, params, x, max_len, ctx)
+        else:
+            x, cache = _rwkv_prefill(cfg, params, x, ctx)
+        return _logits(cfg, params, x[:, -1]), cache, x.shape[1]

@@ -14,16 +14,20 @@ step). Prefill runs the chunked scan (the CUDA kernel on the card);
 training (``train=True``) runs the chunked scan's plain version on either
 device, which autograd differentiates, as the JAX package's training does
 off the TPU; decode updates the state directly, O(1) a token, with plain
-tensor code.
+tensor code. On a mesh (``ctx``) the scan runs on each rank's batch shard
+through ``local_map`` (:func:`_scan`), so the kernel sees local tensors;
+``analysis`` swaps in the scan's shape-preserving stub (the dry-run).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.sharding import batch_spec, on_mesh, shard_map_compat
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 from repro_torch.models.layers import COMPUTE_DTYPE, matmul, rms_norm
@@ -97,16 +101,32 @@ def mamba2_scan_inputs(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg):
     return (xh, a, beff, ceff), z, conv_state
 
 
+def _scan(x, a, b, c, *, train: bool, analysis: bool, ctx):
+    """The recurrence: the stub under ``analysis``; for training the plain
+    chunked scan, which autograd differentiates (the kernel has no
+    backward); else ``kops.ssm_scan`` (the kernel on the card). On a mesh,
+    on each rank's batch shard (every input and output is batch-first)."""
+    if analysis:
+        scan = functools.partial(kops.ssm_scan, analysis=True)
+    else:
+        scan = kref.ssm_scan_chunked if train else kops.ssm_scan
+    if not on_mesh(ctx):
+        return scan(x, a, b, c)
+    ins = tuple(batch_spec(ctx, t.shape) for t in (x, a, b, c))
+    b_, _, h, _ = x.shape
+    outs = (ins[0], batch_spec(ctx, (b_, h, c.shape[-1], x.shape[-1])))
+    return shard_map_compat(lambda *t: tuple(scan(*t)), mesh=ctx.mesh, in_specs=ins,
+                            out_specs=outs)(x, a, b, c)
+
+
 def mamba2_block(
     x: torch.Tensor, p: Dict[str, torch.Tensor], cfg, *, return_cache: bool = False,
-    train: bool = False,
+    train: bool = False, analysis: bool = False, ctx=None,
 ):
     """x: (B, S, D) -> (B, S, D). Prefill and training path (chunked scan).
     ``return_cache`` also returns the final recurrence and conv state."""
     (xh, a, beff, ceff), z, conv_state = mamba2_scan_inputs(x, p, cfg)
-    # training differentiates the plain version: the kernel has no backward
-    scan = kref.ssm_scan_chunked if train else kops.ssm_scan
-    y, hfinal = scan(xh, a, beff, ceff)
+    y, hfinal = _scan(xh, a, beff, ceff, train=train, analysis=analysis, ctx=ctx)
     out = _mamba_readout(y, xh, z, p, cfg)
     if return_cache:
         return out, {"state": hfinal, "conv": conv_state}
@@ -192,17 +212,14 @@ def _rwkv_readout(r, k, v, y_scan, p, cfg, b, s):
 
 def rwkv6_block(
     x: torch.Tensor, p: Dict[str, torch.Tensor], cfg, *, return_state: bool = False,
-    analysis: bool = False, train: bool = False,
+    analysis: bool = False, train: bool = False, ctx=None,
 ):
     """RWKV-6 time-mix, prefill and training path. x: (B, S, D)."""
     b, s, d = x.shape
     xprev = _token_shift(x)
     r, k, v, g, w = _rwkv_project(x, xprev, p, cfg)
-    # recurrence: h_t = diag(w_t) h_{t-1} + k_t ⊗ v_t ; y = r·h_t
-    if train:
-        y_scan, hfinal = kref.ssm_scan_chunked(v, w, k, r)  # per-channel decay
-    else:
-        y_scan, hfinal = kops.ssm_scan(v, w, k, r, analysis=analysis)
+    # recurrence: h_t = diag(w_t) h_{t-1} + k_t ⊗ v_t ; y = r·h_t (per-channel decay)
+    y_scan, hfinal = _scan(v, w, k, r, train=train, analysis=analysis, ctx=ctx)
     y = _rwkv_readout(r, k, v, y_scan, p, cfg, b, s)
     y = y * F.silu(g.float()).to(COMPUTE_DTYPE)
     out = matmul(y, p["w_o"])

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.dist import make_ctx
 from repro_torch.models import moe as tmoe
 
 BF16_ULP = 2 ** -7
@@ -174,13 +175,13 @@ def test_full_width_capacity():
 
 
 def test_batched_moe_ffn_and_ctx():
-    """moe_ffn over (B, S, D) is moe_ffn_local over the B*S tokens; a mesh
-    ctx raises, as the model's other entry points do."""
+    """moe_ffn over (B, S, D) is moe_ffn_local over the B*S tokens; a ctx
+    without a mesh is one device (the mesh layouts:
+    tests/test_torch_moe_sharded.py)."""
     rw, wg, wu, wd = (torch.from_numpy(a) for a in weights(5))
     p = {"router": rw, "w_gate": wg.bfloat16(), "w_up": wu.bfloat16(), "w_down": wd.bfloat16()}
     x = torch.randn(2, 12, D, generator=torch.Generator().manual_seed(0)).bfloat16()
     got = tmoe.moe_ffn(x, p, k=2)
     want = tmoe.moe_ffn_local(x.reshape(24, D), rw, p["w_gate"], p["w_up"], p["w_down"], k=2)
     assert torch.equal(got, want.reshape(2, 12, D))
-    with pytest.raises(NotImplementedError, match="ctx"):
-        tmoe.moe_ffn(x, p, k=2, ctx=object())
+    assert torch.equal(tmoe.moe_ffn(x, p, k=2, ctx=make_ctx(None, mode="serve")), got)
