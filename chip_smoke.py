@@ -15,10 +15,10 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    tile; each 4096² case also against the plain version of the kernel's
    schedule (``morph_reconstruct_tiled``) and three repeated kernel calls,
    with the kernel's time, launches, rounds, tile visits against tiles ×
-   rounds, host round trips, bound and the plain time;
+   rounds, bound and the plain time;
 4. the single-tile SA study, ``repro_torch.app.run_study``, on a 4096²
    tile with the 16-run MOAT design over Table I, counting kernel launches,
-   the kernel's rounds and tile visits, and its host round trips;
+   and the kernel's rounds and tile visits;
 5. the same study code on card and CPU at 256², Dice within 1e-3;
 6. build: the ``ssm_scan`` CUDA kernel (chunk-parallel: three passes);
 7. ``ssm_scan`` vs its three plain versions on the card in fp32, on the
@@ -48,8 +48,7 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
     against its plain version, then the dataset study,
     ``repro_torch.app.run_dataset_study``, over 2 tiles of 4096² (tile 0 is
     phase 4's) with phase 4's MOAT runs and the default set, two thread
-    workers, counting kernel launches and host round trips and timing each
-    task;
+    workers, counting kernel launches and timing each task;
 15. the adaptive study, ``repro_torch.app.run_adaptive_study`` (MOAT →
     prune → VBD → refine, 3 rounds) on tile 0 over an ``obj:`` store,
     resumed from its saved state with zero recompute (8 of round 1's runs
@@ -801,8 +800,7 @@ def two_streams(morph_recon, mk, ms, reps):
     another's blocks (each thread is joined within a minute); the launch
     count is exact and the rounds and tile visits, which the kernels add
     on the card, hold every call's share."""
-    counts = (morph_recon.LAUNCHES, morph_recon.ROUNDS, morph_recon.TILE_VISITS,
-              morph_recon.HOST_ROUND_TRIPS)
+    counts = (morph_recon.LAUNCHES, morph_recon.ROUNDS, morph_recon.TILE_VISITS)
     th, tw = morph_recon.TILE
     n_tiles = -(-mk.shape[0] // th) * -(-mk.shape[1] // tw)
     want = morph_recon.morph_reconstruct_ref(mk, ms, conn=8)
@@ -840,7 +838,6 @@ def two_streams(morph_recon, mk, ms, reps):
           "every call from the two streams equals the plain version")
     check(both[0] == serial[0] == reps, f"launches: two streams {both[0]}, serial {serial[0]}, "
           f"calls {reps}")
-    check(both[3] == serial[3] == 0, "no host round trip")
     for name, c in (("serial", serial), ("two streams", both)):
         check(c[1] >= reps and c[2] >= reps * n_tiles,
               f"{name}: rounds {c[1]} >= {reps} calls and tile visits {c[2]} >= "
@@ -848,7 +845,7 @@ def two_streams(morph_recon, mk, ms, reps):
     print(f"morph_recon, Seg2 input {tuple(mk.shape)} conn 8, {reps} calls: one after another "
           f"{serial_s:.4f} s ({serial[0]} launches, {serial[1]} rounds, {serial[2]} tile visits); "
           f"two threads on two streams {both_s:.4f} s ({both[0]} launches, {both[1]} rounds, "
-          f"{both[2]} tile visits); all equal to the plain version, no host round trip")
+          f"{both[2]} tile visits); all equal to the plain version")
 
 
 def print_task_seconds(task_s, task_n):
@@ -873,7 +870,7 @@ def dataset_study(pipeline, tiles, sets, study_dice, counters, timers):
     ds = pipeline.run_dataset_study(tiles, sets, strategy="hybrid", n_workers=2)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches, rounds, visits, trips = (c.value for c in counters)
+    launches, rounds, visits = (c.value for c in counters)
     n = len(tiles)
     _, one, _ = pipeline._plan_image_study(
         SIZE, SIZE, sets, strategy="hybrid", max_bucket_size=None, active_paths=None,
@@ -888,8 +885,7 @@ def dataset_study(pipeline, tiles, sets, study_dice, counters, timers):
     print(f"throughput {ds['throughput']} tiles/s; parallel efficiency "
           f"{ds['parallel_efficiency']}; retries {ds['retries']}; backups launched "
           f"{ds['backups_launched']}; dispatch {ds['dispatch_counts']}")
-    print(f"morph_recon in the study: {launches} launches, {rounds} rounds, {visits} tile visits, "
-          f"{trips} host round trips in the wrapper")
+    print(f"morph_recon in the study: {launches} launches, {rounds} rounds, {visits} tile visits")
     print(f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     for i, row in enumerate(ds["dice"]):
         print(f"dice tile {i}: " + " ".join(f"{d:.6f}" for d in row))
@@ -908,8 +904,7 @@ def dataset_study(pipeline, tiles, sets, study_dice, counters, timers):
           "tile 0's Dice list == phase 4's (same tile, same runs)")
     check(all(row[-1] == 1.0 for row in ds["dice"]), "the default set's Dice is 1.0 on every tile")
     check(all(0.0 <= d <= 1.0 for row in ds["dice"] for d in row), "dice in [0, 1]")
-    check(launches > 0 and trips == 0, f"morph_recon launched ({launches}) with no host round trip "
-          f"({trips})")
+    check(launches > 0, f"morph_recon launched ({launches})")
     return launches, ds
 
 
@@ -1304,7 +1299,7 @@ def adaptive_study(pipeline, tiles, counters, timers):
         ad = pipeline.run_adaptive_study(tiles, store_dir=store_dir, **ADAPTIVE)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches, rounds, visits, trips = (c.value for c in counters)
+        launches, rounds, visits = (c.value for c in counters)
         state = ad["state"]
         kinds = [r.kind for r in state.rounds]
         print(f"wall {wall:.3f} s (run_adaptive_study's own {ad['wall_seconds']:.3f} s, after the "
@@ -1318,12 +1313,11 @@ def adaptive_study(pipeline, tiles, counters, timers):
               f"{ad['cache_rehydrations']}; store disk hits {ad['store_disk_hits']}; flushed "
               f"{ad['cache_flushed']}")
         print(f"morph_recon in the study: {launches} launches, {rounds} rounds, {visits} tile "
-              f"visits, {trips} host round trips in the wrapper")
+              f"visits")
         print(f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
         print_task_seconds(task_s, task_n)
         check(kinds[:2] == ["moat", "vbd"], f"rounds start MOAT, VBD: {kinds}")
-        check(ad["tasks_executed"] > 0 and launches > 0 and trips == 0,
-              f"morph_recon launched ({launches}) with no host round trip ({trips})")
+        check(ad["tasks_executed"] > 0 and launches > 0, f"morph_recon launched ({launches})")
 
         # resume: the saved state and a fresh driver over the same store
         ckpt = f"{tmp}/state.json"
@@ -2205,8 +2199,7 @@ def main() -> int:
     th, tw = morph_recon.TILE
     check(morph_recon.kernel_tile()[:2] == (th, tw),
           f"the kernel's tile {morph_recon.kernel_tile()[:2]} == TILE {(th, tw)}")
-    counters = (morph_recon.LAUNCHES, morph_recon.ROUNDS, morph_recon.TILE_VISITS,
-                morph_recon.HOST_ROUND_TRIPS)
+    counters = (morph_recon.LAUNCHES, morph_recon.ROUNDS, morph_recon.TILE_VISITS)
     torch.cuda.synchronize()
     torch.cuda._sleep(50_000_000)  # the stream stays busy for some milliseconds
     morph_recon.morph_reconstruct_cuda(*cases["random 65x33"], conn=8)
@@ -2217,14 +2210,13 @@ def main() -> int:
             torch.cuda.synchronize()
             before = [c.value for c in counters]
             got = morph_recon.morph_reconstruct_cuda(mk, ms, conn=conn)
-            launches, rounds, visits, trips = (c.value - b for c, b in zip(counters, before))
+            launches, rounds, visits = (c.value - b for c, b in zip(counters, before))
             want = morph_recon.morph_reconstruct_ref(mk, ms, conn=conn)
             check(torch.equal(got, want), f"morph_recon == plain on {name} conn={conn} "
                   f"({int((got != want).sum())} pixels differ)")
-            check(launches == 1 and trips == 0,
-                  f"one launch ({launches}) and no host round trip ({trips}) a call")
+            check(launches == 1, f"one launch ({launches}) a call")
             max_err = max(max_err, float((got - want).abs().max()))
-            line = f"{name} conn={conn}: equal, {launches} launch, {trips} host round trips"
+            line = f"{name} conn={conn}: equal, {launches} launch"
             if mk.numel() == SIZE * SIZE:
                 tiled = morph_recon.morph_reconstruct_tiled(mk, ms, conn, (th, tw))
                 check(torch.equal(got, tiled.result),
@@ -2289,7 +2281,7 @@ def main() -> int:
     out = pipeline.run_study(tile, sets, strategy="rmsr")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    study_launches, study_rounds, study_visits, study_trips = (c.value for c in counters)
+    study_launches, study_rounds, study_visits = (c.value for c in counters)
     check(out["tasks_total"] == 8 * len(sets) == 128, f"tasks_total {out['tasks_total']} == 128")
     check(out["planned_tasks_executed"] == 71,
           f"planned tasks_executed {out['planned_tasks_executed']} == 71")
@@ -2299,7 +2291,7 @@ def main() -> int:
           f"{out['planned_tasks_executed']}; measured tasks_executed {out['tasks_executed']}; "
           f"cache_hits {out['cache_hits']}; reuse_fraction {out['reuse_fraction']}")
     print(f"morph_recon in the study: {study_launches} launches, {study_rounds} rounds, "
-          f"{study_visits} tile visits, {study_trips} host round trips in the wrapper")
+          f"{study_visits} tile visits")
     print(f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     print("dice " + " ".join(f"{d:.6f}" for d in out["dice"]))
     print("per-task seconds (tasks of the study and its reference run; each timed between syncs):")

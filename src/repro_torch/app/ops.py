@@ -10,13 +10,15 @@ kernel for tensors on the card, its plain version on the CPU. Both are exact.
 
 Connectivity parameters (FH / RC / WConn in Table I) are 4 or 8 and select
 the structuring element. Label and flooding loops run to their fixpoint with
-one host sync per step.
+one host sync per step; each loop is a ``label_loop`` span whose ``steps``
+counts those syncs.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch import trace
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import dilate, erode, neighbors as _neighbors, shift2d as _shift
 
@@ -100,14 +102,18 @@ def label_components(mask: torch.Tensor, conn: int = 8) -> torch.Tensor:
     big = h * w
     idx = torch.arange(h * w, dtype=torch.int32, device=mask.device).reshape(h, w)
     lab = torch.where(mask, idx, big)
-    while True:
-        new = lab
-        for dy, dx in _neighbors(conn):
-            new = torch.minimum(new, _shift(lab, dy, dx, big))
-        new = torch.where(mask, new, big)
-        if not bool(torch.any(new != lab)):
-            break
-        lab = new
+    with trace.span("label_loop", "pathology tasks") as sp:
+        steps = 0
+        while True:
+            new = lab
+            for dy, dx in _neighbors(conn):
+                new = torch.minimum(new, _shift(lab, dy, dx, big))
+            new = torch.where(mask, new, big)
+            steps += 1
+            if not bool(torch.any(new != lab)):
+                break
+            lab = new
+        sp.count(steps=steps)
     return torch.where(mask, lab, -1)
 
 
@@ -163,14 +169,18 @@ def watershed_split(
     # Competitive multi-source BFS: unlabeled pixels take the min
     # neighbouring label; labelled pixels never change, so basins stop at
     # collision fronts (the watershed lines).
-    while True:
-        nb = torch.full_like(lab, big)
-        for dy, dx in _neighbors(conn):
-            nb = torch.minimum(nb, _shift(lab, dy, dx, big))
-        new = torch.where((lab == big) & pre, nb, lab)
-        if not bool(torch.any(new != lab)):
-            break
-        lab = new
+    with trace.span("label_loop", "pathology tasks") as sp:
+        steps = 0
+        while True:
+            nb = torch.full_like(lab, big)
+            for dy, dx in _neighbors(conn):
+                nb = torch.minimum(nb, _shift(lab, dy, dx, big))
+            new = torch.where((lab == big) & pre, nb, lab)
+            steps += 1
+            if not bool(torch.any(new != lab)):
+                break
+            lab = new
+        sp.count(steps=steps)
     # split line: a pixel adjacent (4-conn) to a pixel of a different basin
     boundary = torch.zeros_like(mask)
     for dy, dx in _neighbors(4):

@@ -26,6 +26,7 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.app import ops
 from repro_torch.core import ParamSpace, StageSpec, TaskSpec, Workflow, dice
 from repro_torch.core.metrics import reuse_factor
@@ -367,15 +368,16 @@ def _plan_image_study(
     cluster = ClusterSpec(n_workers=n_workers)
     if active_paths is None and memory_budget_bytes is None:
         active_paths = 4  # headline depth-first width when nothing to solve
-    plan = plan_study(
-        wf,
-        list(param_sets),
-        memory=memory,
-        cluster=cluster,
-        policy=strategy,
-        max_bucket_size=max_bucket_size,
-        active_paths=active_paths,
-    )
+    with trace.span("plan", "planner"):
+        plan = plan_study(
+            wf,
+            list(param_sets),
+            memory=memory,
+            cluster=cluster,
+            policy=strategy,
+            max_bucket_size=max_bucket_size,
+            active_paths=active_paths,
+        )
     return wf, plan, cluster
 
 
@@ -397,8 +399,9 @@ def _reference_masks(
 ) -> List[torch.Tensor]:
     """The default-parameter segmentation of every tile, left on the tiles'
     device."""
-    ref_plan = plan_study(wf, [ref_params], policy="rmsr", active_paths=1)
-    ref_stream = execute_study(ref_plan, raws, cluster=cluster)
+    with trace.span("reference", "pathology tasks"):
+        ref_plan = plan_study(wf, [ref_params], policy="rmsr", active_paths=1)
+        ref_stream = execute_study(ref_plan, raws, cluster=cluster)
     return [ref_stream.outputs[i][0]["mask"] for i in range(len(raws))]
 
 
@@ -444,26 +447,31 @@ def run_study(
     ref_params = reference_params or TABLE1_SPACE.default()
 
     t0 = time.perf_counter()
-    wf, plan, _cluster = _plan_image_study(
-        h, w, param_sets,
-        strategy=strategy, max_bucket_size=max_bucket_size,
-        active_paths=active_paths, costs=costs, n_workers=n_workers,
-        memory_budget_bytes=memory_budget_bytes,
-    )
-    raw = {"raw": torch.from_numpy(np.asarray(image)).to(dev)}
-    backend_obj = _backend_for(backend, [image], costs, device=device)
-    try:
-        result = execute_plan(plan, raw, backend=backend_obj, hierarchy=hierarchy)
-    finally:
-        _backend_cleanup(backend, backend_obj)
+    n_runs = len(param_sets)
+    with trace.span("study", "pathology tasks", tiles=1, runs=n_runs):
+        wf, plan, _cluster = _plan_image_study(
+            h, w, param_sets,
+            strategy=strategy, max_bucket_size=max_bucket_size,
+            active_paths=active_paths, costs=costs, n_workers=n_workers,
+            memory_budget_bytes=memory_budget_bytes,
+        )
+        raw = {"raw": torch.from_numpy(np.asarray(image)).to(dev)}
+        backend_obj = _backend_for(backend, [image], costs, device=device)
+        try:
+            with trace.span("execute", "pathology tasks"):
+                result = execute_plan(plan, raw, backend=backend_obj, hierarchy=hierarchy)
+        finally:
+            _backend_cleanup(backend, backend_obj)
 
-    ref_plan = plan_study(wf, [ref_params], policy="rmsr", active_paths=1)
-    ref_mask = execute_plan(ref_plan, raw).outputs[0]["mask"]
+        with trace.span("reference", "pathology tasks"):
+            ref_plan = plan_study(wf, [ref_params], policy="rmsr", active_paths=1)
+            ref_mask = execute_plan(ref_plan, raw).outputs[0]["mask"]
 
-    dices = [
-        float(dice(result.outputs[rid]["mask"], ref_mask))
-        for rid in range(len(param_sets))
-    ]
+        with trace.span("score", "pathology tasks", readbacks=n_runs):
+            dices = [
+                float(dice(result.outputs[rid]["mask"], ref_mask))
+                for rid in range(n_runs)
+            ]
     wall = time.perf_counter() - t0
     return {
         "dice": dices,
@@ -519,30 +527,33 @@ def run_dataset_study(
     ref_params = reference_params or TABLE1_SPACE.default()
 
     t0 = time.perf_counter()
-    h, w, raws = _tile_inputs(images, dev, "run_dataset_study")
-    wf, plan, cluster = _plan_image_study(
-        h, w, param_sets,
-        strategy=strategy, max_bucket_size=max_bucket_size,
-        active_paths=active_paths, costs=costs, n_workers=n_workers,
-        memory_budget_bytes=memory_budget_bytes,
-    )
-    backend_obj = _backend_for(backend, images, costs, device=device)
-    try:
-        stream = execute_study(
-            plan, raws, cluster=cluster, backend=backend_obj, hierarchy=hierarchy
+    n = len(images)
+    with trace.span("study", "pathology tasks", tiles=n, runs=n * len(param_sets)):
+        h, w, raws = _tile_inputs(images, dev, "run_dataset_study")
+        wf, plan, cluster = _plan_image_study(
+            h, w, param_sets,
+            strategy=strategy, max_bucket_size=max_bucket_size,
+            active_paths=active_paths, costs=costs, n_workers=n_workers,
+            memory_budget_bytes=memory_budget_bytes,
         )
-    finally:
-        _backend_cleanup(backend, backend_obj)
-    ref_masks = _reference_masks(wf, ref_params, raws, cluster)
+        backend_obj = _backend_for(backend, images, costs, device=device)
+        try:
+            with trace.span("execute", "pathology tasks"):
+                stream = execute_study(
+                    plan, raws, cluster=cluster, backend=backend_obj, hierarchy=hierarchy
+                )
+        finally:
+            _backend_cleanup(backend, backend_obj)
+        ref_masks = _reference_masks(wf, ref_params, raws, cluster)
 
-    n = len(raws)
-    dices = [
-        [
-            float(dice(stream.outputs[i][rid]["mask"], ref_masks[i]))
-            for rid in range(len(param_sets))
-        ]
-        for i in range(n)
-    ]
+        with trace.span("score", "pathology tasks", readbacks=n * len(param_sets)):
+            dices = [
+                [
+                    float(dice(stream.outputs[i][rid]["mask"], ref_masks[i]))
+                    for rid in range(len(param_sets))
+                ]
+                for i in range(n)
+            ]
     return {
         "dice": dices,  # [tile][run]
         "tasks_total": plan.tasks_total * n,

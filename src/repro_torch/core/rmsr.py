@@ -28,6 +28,7 @@ import dataclasses
 import heapq
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
+from repro_torch import trace
 from repro_torch.core.reuse import ReuseNode, ReuseTree
 
 __all__ = [
@@ -244,7 +245,8 @@ def replay_schedule(
             hits += 1
         else:
             src = input_state if at_root else outputs[parent.uid]
-            out = task.fn(src, **params) if task.fn is not None else src
+            with trace.span(task.name, "pathology tasks"):
+                out = task.fn(src, **params) if task.fn is not None else src
             executed += 1
             if store is not None:
                 store(pk, out, task, params)
@@ -258,6 +260,7 @@ def replay_schedule(
             remaining[parent.uid] -= 1
             if remaining[parent.uid] == 0:
                 del outputs[parent.uid]  # liveness: parent freed
+    trace.count(executed=executed, hits=hits)
     return results, executed, hits
 
 

@@ -32,6 +32,7 @@ import threading
 import time
 from typing import Any, List, Optional, Sequence
 
+from repro_torch import trace
 from repro_torch.engine.executor import ResultCache, execute_bucket
 from repro_torch.engine.types import (
     ClusterSpec,
@@ -227,6 +228,9 @@ def execute_study(
     n_stages = len(plan.stages)
     total_tasks = sum(len(sp.buckets) for sp in plan.stages) * len(inputs)
 
+    # the caller's span, the parent of every bucket of this study (the
+    # pump thread's callbacks submit the later stages)
+    parent_span = trace.current()
     submitted: List[str] = []  # list.append is atomic; drained before reads
     # Shared-mode completion accounting (guarded by ``lock``): submitted-
     # but-unsettled keys, settled count, and whether the initial per-input
@@ -268,6 +272,7 @@ def execute_study(
                     shared=shared,
                     tenant=tenant,
                     priority=priority,
+                    parent_span=parent_span,
                 )
             )
 

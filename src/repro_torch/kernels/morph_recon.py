@@ -30,7 +30,7 @@ from repro_torch.kernels.nvcc import NVCC_FLAGS, Build, LaunchCount
 from repro_torch.kernels.ref import MAX_PASSES, morph_reconstruct_ref, morph_reconstruct_tiled
 
 __all__ = [
-    "build", "LAUNCHES", "ROUNDS", "TILE_VISITS", "HOST_ROUND_TRIPS", "MAX_PASSES", "TILE",
+    "build", "LAUNCHES", "ROUNDS", "TILE_VISITS", "MAX_PASSES", "TILE",
     "NVCC_FLAGS", "morph_reconstruct_cuda", "morph_reconstruct_ref", "morph_reconstruct_tiled",
 ]
 
@@ -118,9 +118,6 @@ LAUNCHES = LaunchCount()
 # the kernel's rounds and tile visits, summed over calls on the card
 ROUNDS = DeviceTotal(0)
 TILE_VISITS = DeviceTotal(1)
-# waits on the card inside the wrapper: none, so this stays 0 (a guard
-# against a per-call or per-round host round trip coming back)
-HOST_ROUND_TRIPS = LaunchCount()
 
 
 def morph_reconstruct_cuda(

@@ -65,6 +65,7 @@ import threading
 import time
 from typing import Any, Callable, Dict, List, Optional
 
+from repro_torch import trace
 from repro_torch.runtime.fairshare import FairQueue, TaskCancelled
 from repro_torch.runtime.hierarchy import (
     HierarchySpec,
@@ -140,6 +141,16 @@ class WorkItem:
     # immediately. Requires keys derived from task CONTENT, so identical
     # keys always denote identical pure work.
     shared: bool = False
+    # The span that caused this item (repro_torch.trace; None while tracing
+    # is off): the parent of its bucket.wait and bucket.run spans. queued_ns
+    # is when submit took it, cleared by its first lease.
+    parent_span: Optional[trace.Span] = None
+    queued_ns: Optional[int] = None
+
+
+def _lease(item: WorkItem) -> Lease:
+    return Lease(key=item.key, attempt=item.attempts, fn=item.fn,
+                 spec=item.spec, parent_span=item.parent_span)
 
 
 class _SubPump:
@@ -485,6 +496,8 @@ class Manager:
                         # non-shared submission's callback wins
                         self._callbacks[item.key] = [item.callback]
                 self._pending.add(item.key)
+                if trace.active():
+                    item.queued_ns = trace.now_ns()
                 self._queue.append(item)
                 self._cond.notify_all()
         if serve_memo:
@@ -684,6 +697,10 @@ class Manager:
         numbers are issued centrally — here and ONLY here — so concurrent
         attempts of one key (original + backup, or a stolen re-dispatch)
         always hold distinct leases, whichever pump leases them."""
+        if item.queued_ns is not None:
+            trace.record("bucket.wait", "manager dispatch", item.queued_ns,
+                         trace.now_ns(), item.parent_span, key=item.key)
+            item.queued_ns = None
         item.started_at = time.monotonic()
         item.attempts = self._attempt_seq.get(item.key, 0) + 1
         self._attempt_seq[item.key] = item.attempts
@@ -877,7 +894,8 @@ class Manager:
                         WorkItem(key=item.key, fn=item.fn, spec=item.spec,
                                  attempt_base=item.attempt_base,
                                  path=item.path, tenant=item.tenant,
-                                 priority=item.priority)
+                                 priority=item.priority,
+                                 parent_span=item.parent_span)
                     )
                     self._cond.notify_all()
                 elif not any(
@@ -945,7 +963,8 @@ class Manager:
             self._queue.append(WorkItem(key=it.key, fn=it.fn, spec=it.spec,
                                         attempt_base=it.attempt_base,
                                         path=it.path, tenant=it.tenant,
-                                        priority=it.priority))
+                                        priority=it.priority,
+                                        parent_span=it.parent_span))
             self._cond.notify_all()
 
     def _maybe_backup_locked(self) -> Optional[WorkItem]:
@@ -976,7 +995,8 @@ class Manager:
             return WorkItem(key=worst.key, fn=worst.fn, spec=worst.spec,
                             attempt_base=worst.attempt_base,
                             path=worst.path, tenant=worst.tenant,
-                            priority=worst.priority)
+                            priority=worst.priority,
+                            parent_span=worst.parent_span)
         return None
 
     def _sub_pump(self, sub: _SubPump) -> None:
@@ -1083,10 +1103,7 @@ class Manager:
                 item = self._next_sub_locked(sub, worker_id=wid)
             if item is None:
                 break
-            lease = Lease(
-                key=item.key, attempt=item.attempts, fn=item.fn,
-                spec=item.spec,
-            )
+            lease = _lease(item)
             ok = (
                 offer_to(lease, wid)
                 if offer_to is not None
@@ -1119,10 +1136,7 @@ class Manager:
                 batch.append(item)
         if not batch:
             return 0
-        leases = [
-            Lease(key=it.key, attempt=it.attempts, fn=it.fn, spec=it.spec)
-            for it in batch
-        ]
+        leases = [_lease(it) for it in batch]
         try:
             rejected = {
                 lease.lease_id
@@ -1217,7 +1231,8 @@ class Manager:
                     WorkItem(key=item.key, fn=item.fn, spec=item.spec,
                              attempt_base=item.attempt_base,
                              path=item.path, tenant=item.tenant,
-                             priority=item.priority)
+                             priority=item.priority,
+                             parent_span=item.parent_span)
                 )
                 self._cond.notify_all()
                 return
@@ -1387,10 +1402,7 @@ class Manager:
                             item = self._next_locked()
                         if item is None:
                             break
-                        lease = Lease(
-                            key=item.key, attempt=item.attempts, fn=item.fn,
-                            spec=item.spec,
-                        )
+                        lease = _lease(item)
                         if backend.offer(lease):
                             with self._cond:
                                 self.dispatch_counts[self.backend_name] = (
@@ -1434,10 +1446,7 @@ class Manager:
                     batch.append(item)
             if not batch:
                 return
-            leases = [
-                Lease(key=it.key, attempt=it.attempts, fn=it.fn, spec=it.spec)
-                for it in batch
-            ]
+            leases = [_lease(it) for it in batch]
             rejected = {lease.lease_id for lease in offer_batch(leases)}
             accepted = len(batch) - len(rejected)
             if accepted:

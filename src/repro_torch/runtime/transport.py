@@ -85,6 +85,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.runtime.tensors import tensor_from_host, tensor_to_host
 
 __all__ = [
@@ -129,6 +130,9 @@ class Lease:
     attempt: int
     fn: Optional[Callable[[], Any]] = None
     spec: Optional[Tuple] = None
+    # the work item's span (repro_torch.trace), the parent of the
+    # ThreadBackend's bucket.run span; never crosses a process boundary
+    parent_span: Optional[trace.Span] = None
 
     @property
     def lease_id(self) -> str:
@@ -434,10 +438,12 @@ class ThreadBackend:
                 return
             t0 = time.monotonic()
             try:
-                if lease.fn is not None:
-                    value = lease.fn()
-                else:
-                    value = run_call_spec(lease.spec)
+                with trace.span("bucket.run", "manager dispatch", lease.parent_span,
+                                key=lease.key):
+                    if lease.fn is not None:
+                        value = lease.fn()
+                    else:
+                        value = run_call_spec(lease.spec)
             except Exception as e:  # noqa: BLE001 — the Manager owns retry
                 comp = Completion(
                     key=lease.key, attempt=lease.attempt, ok=False, exc=e,

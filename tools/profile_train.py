@@ -12,7 +12,8 @@ alone, each timed by CUDA events after a warm-up:
 - ``adamw_update`` over the 1.30 B masters;
 
 and, under ``torch.profiler`` (CUDA activity), one step's device time by
-kernel against its wall time: the device's busy share.
+kernel, and the device's busy share: the union of its operations'
+intervals against the step's wall time.
 
     python3 tools/profile_train.py    # needs a CUDA card
 """
@@ -51,6 +52,26 @@ def events_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def busy_ms(prof) -> float:
+    """The time in which some operation ran on the card: the union of the
+    device operations' intervals, so two streams at once count once (a sum
+    of the kernels' times would count them twice)."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((ev.start_ns(), ev.start_ns() + ev.duration_ns())
+                   for ev in prof.profiler.kineto_results.events()
+                   if ev.device_type() == DeviceType.CUDA)
+    busy, end = 0, None
+    for s, e in spans:
+        if end is None or s > end:
+            busy += e - s
+            end = e
+        elif e > end:
+            busy += e - end
+            end = e
+    return busy / 1e6
 
 
 def main() -> int:
@@ -141,12 +162,12 @@ def main() -> int:
         torch.cuda.synchronize()
     wall = start.elapsed_time(end)
     kernels = [e for e in prof.key_averages() if e.device_time_total > 0]
-    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    busy = busy_ms(prof)
     if not kernels:
         print("device busy share: not measured (the profiler recorded no device time)")
     else:
-        print(f"one step under the profiler: {wall:.1f} ms wall (CUDA events), {busy:.1f} ms of "
-              f"kernels: busy {busy / wall:.1%}, idle {1 - busy / wall:.1%}")
+        print(f"one step under the profiler: {wall:.1f} ms wall (CUDA events), {busy:.1f} ms in "
+              f"which a kernel ran: busy {busy / wall:.1%}, idle {1 - busy / wall:.1%}")
         for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
             print(f"  {e.self_device_time_total / 1e3:9.1f} ms  {e.count:6d} calls  {e.key[:100]}")
     return 0
