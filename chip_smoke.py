@@ -7,18 +7,23 @@ Usage, from the root of a checkout, on a machine with one CUDA card:
 
 Phases, each printed on its own lines; any failure raises and exits non-zero:
 
-1. device: the card's name and power limit, TF32 off; the three kernels
-   start building (one ``nvcc`` each, in parallel);
-2. build: the ``morph_recon`` CUDA kernel from the checkout's source;
+1. device: the card's name and power limit, TF32 off; the kernels start
+   building (one ``nvcc`` each, in parallel);
+2. build: the ``morph_recon`` and ``label_prop`` CUDA kernels from the
+   checkout's source;
 3. kernel vs its plain PyTorch version on the card, ``torch.equal``, on
    random cases and on the real Seg2 and fill-holes inputs of the 4096²
    tile; each 4096² case also against the plain version of the kernel's
    schedule (``morph_reconstruct_tiled``) and three repeated kernel calls,
    with the kernel's time, launches, rounds, tile visits against tiles ×
-   rounds, bound and the plain time;
+   rounds, bound and the plain time; then the label loops' kernel
+   (``label_prop``) at the tile's Seg4 ``area_pre`` labelling and Seg5
+   flood, conn 8, against the Python loops on the card, with its steps
+   (counted on the card, equal to the loops' host syncs), time, byte
+   bound, and the loops' time and device operations;
 4. the single-tile SA study, ``repro_torch.app.run_study``, on a 4096²
    tile with the 16-run MOAT design over Table I, counting kernel launches,
-   and the kernel's rounds and tile visits;
+   ``morph_recon``'s rounds and tile visits and ``label_prop``'s steps;
 5. the same study code on card and CPU at 256², Dice within 1e-3;
 6. build: the ``ssm_scan`` CUDA kernel (chunk-parallel: three passes);
 7. ``ssm_scan`` vs its three plain versions on the card in fp32, on the
@@ -44,8 +49,8 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
     tokens × 12 decoding settings × 3 thresholds, counting the kernels'
     launches (attention on the tensor-core kernel only);
 13. the same serve study code on card and CPU on the reduced Zamba2;
-14. ``morph_recon`` launched from two threads on two streams at once
-    against its plain version, then the dataset study,
+14. ``morph_recon`` and ``label_prop`` launched from two threads on two
+    streams at once against their plain versions, then the dataset study,
     ``repro_torch.app.run_dataset_study``, over 2 tiles of 4096² (tile 0 is
     phase 4's) with phase 4's MOAT runs and the default set, two thread
     workers, counting kernel launches and timing each task;
@@ -130,6 +135,7 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -792,34 +798,25 @@ def lm_batch(cfg, s_text, seed, device):
     return batch
 
 
-def two_streams(morph_recon, mk, ms, reps):
-    """Phase 14's concurrency check: ``reps`` calls of the cooperative
-    kernel one after another, then the same calls from two threads each on
-    its own stream at once (the dataset study's two workers may launch
-    together). Every result equals the plain version; no launch waits on
-    another's blocks (each thread is joined within a minute); the launch
-    count is exact and the rounds and tile visits, which the kernels add
-    on the card, hold every call's share."""
-    counts = (morph_recon.LAUNCHES, morph_recon.ROUNDS, morph_recon.TILE_VISITS)
-    th, tw = morph_recon.TILE
-    n_tiles = -(-mk.shape[0] // th) * -(-mk.shape[1] // tw)
-    want = morph_recon.morph_reconstruct_ref(mk, ms, conn=8)
+def on_two_streams(call, reps, counts):
+    """``reps`` calls of ``call`` one after another, then as many from two
+    threads each on its own stream at once (the dataset study's two workers
+    may launch together). No launch may wait on another's blocks: each
+    thread is joined within a minute. Returns, for each way, the results,
+    the seconds and what each of ``counts`` (objects with a ``value``)
+    rose by."""
     torch.cuda.synchronize()
     before = [c.value for c in counts]
     t0 = time.perf_counter()
-    serial_out = [morph_recon.morph_reconstruct_cuda(mk, ms, conn=8) for _ in range(reps)]
+    serial_out = [call() for _ in range(reps)]
     torch.cuda.synchronize()
-    serial_s = time.perf_counter() - t0
-    serial = [c.value - b for c, b in zip(counts, before)]
-    check(all(torch.equal(g, want) for g in serial_out), "serial calls equal the plain version")
-    del serial_out
+    serial = (serial_out, time.perf_counter() - t0, [c.value - b for c, b in zip(counts, before)])
     results = [[], []]
 
     def worker(slot):
         stream = torch.cuda.Stream()
         with torch.cuda.stream(stream):
-            results[slot] = [morph_recon.morph_reconstruct_cuda(mk, ms, conn=8)
-                             for _ in range(reps // 2)]
+            results[slot] = [call() for _ in range(reps // 2)]
         stream.synchronize()
 
     before = [c.value for c in counts]
@@ -831,9 +828,23 @@ def two_streams(morph_recon, mk, ms, reps):
         t.join(timeout=60)
     check(not any(t.is_alive() for t in threads), "both streams' launches returned within 60 s")
     torch.cuda.synchronize()
-    both_s = time.perf_counter() - t0
-    both = [c.value - b for c, b in zip(counts, before)]
-    got = results[0] + results[1]
+    both = (results[0] + results[1], time.perf_counter() - t0,
+            [c.value - b for c, b in zip(counts, before)])
+    return serial, both
+
+
+def two_streams(morph_recon, mk, ms, reps):
+    """Phase 14's concurrency check of ``morph_recon`` (``on_two_streams``):
+    every result equals the plain version; the launch count is exact and
+    the rounds and tile visits, which the kernels add on the card, hold
+    every call's share."""
+    counts = (morph_recon.LAUNCHES, morph_recon.ROUNDS, morph_recon.TILE_VISITS)
+    th, tw = morph_recon.TILE
+    n_tiles = -(-mk.shape[0] // th) * -(-mk.shape[1] // tw)
+    want = morph_recon.morph_reconstruct_ref(mk, ms, conn=8)
+    (serial_out, serial_s, serial), (got, both_s, both) = on_two_streams(
+        lambda: morph_recon.morph_reconstruct_cuda(mk, ms, conn=8), reps, counts)
+    check(all(torch.equal(g, want) for g in serial_out), "serial calls equal the plain version")
     check(len(got) == reps and all(torch.equal(g, want) for g in got),
           "every call from the two streams equals the plain version")
     check(both[0] == serial[0] == reps, f"launches: two streams {both[0]}, serial {serial[0]}, "
@@ -2043,6 +2054,146 @@ def dist_phase(ref):
 T0 = time.perf_counter()
 
 
+def label_inputs(pipeline, tile: np.ndarray) -> dict:
+    """The label loops' inputs in the default-parameter run on ``tile``, on
+    the card: Seg4's ``area_pre`` mask (Seg3's output) and the seeded
+    flood's (seeds, pre) in Seg5's watershed on ``area_pre``'s output,
+    taken from the flood's call."""
+    from repro_torch.kernels import label_prop
+
+    default = dict(pipeline.TABLE1_SPACE.default())
+    st = pipeline._t_normalize({"raw": torch.from_numpy(tile).cuda()})
+    st = pipeline._t_background(st, default["B"], default["G"], default["R"])
+    st = pipeline._t_rbc(st, default["T1"], default["T2"])
+    st = pipeline._t_recon(st, default["G1"], default["RC"])
+    area_pre = pipeline._t_threshold(st, default["G2"], default["FH"])["mask"]
+    watershed = pipeline._t_area_pre({"mask": area_pre}, default["minS"], default["maxS"])["mask"]
+    seen = []
+    flood = label_prop.flood_cuda
+
+    def spy(seeds, pre, conn):
+        seen.append((seeds, pre))
+        return flood(seeds, pre, conn=conn)
+
+    label_prop.flood_cuda = spy
+    try:
+        pipeline.ops.watershed_split(watershed, int(default["minSPL"]), conn=8)
+    finally:
+        label_prop.flood_cuda = flood
+    return {"area_pre": area_pre, "flood": seen[0]}
+
+
+@contextlib.contextmanager
+def plain_label_loops():
+    """The label loops of ``app.ops`` on their Python versions (one host
+    sync a step) whatever the tensors' device."""
+    from repro_torch.kernels import ops as kops
+
+    on_card = kops._on_card
+    kops._on_card = lambda t, use_kernel=None: False
+    try:
+        yield
+    finally:
+        kops._on_card = on_card
+
+
+def label_bound_ms(numel: int, steps: int, steps_a_pass: int) -> float:
+    """Least time of ``steps`` synchronous steps of a label loop taken
+    ``steps_a_pass`` at a time from device memory: each pass reads the
+    labels (4 bytes a pixel) and the mask (1) once and writes the labels
+    (4), over the memory rate. One step a pass is the Python loop's step;
+    the kernel takes two (``csrc/label_prop.cu``)."""
+    return -(-steps // steps_a_pass) * 9 * numel / HBM_BYTES_PER_S * 1e3
+
+
+def label_prop_row(pipeline, tile: np.ndarray) -> dict:
+    """Phase 3's row of the label loops' kernel at the main path's shapes:
+    the 4096² ``area_pre`` labelling and the watershed's flood, conn 8. The
+    kernel against the Python loop on the card (``torch.equal``, the
+    kernel's steps counted on the card against the loop's host syncs), the
+    kernel's ms and byte bounds (its own two steps a pass, and the Python
+    loop's one), the loop's ms and its device operations (launches, from
+    ``torch.profiler``)."""
+    from repro_torch import trace
+    from repro_torch.kernels import label_prop
+
+    ops = pipeline.ops
+    inputs = label_inputs(pipeline, tile)
+    mask = inputs["area_pre"]
+    seeds, pre = inputs["flood"]
+    calls = {
+        "area_pre": (lambda: label_prop.label_components_cuda(mask, conn=8),
+                     lambda: ops.label_components(mask, conn=8)),
+        "flood": (lambda: label_prop.flood_cuda(seeds, pre, conn=8),
+                  lambda: ops._flood(seeds, pre, 8)),
+    }
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    rows = {}
+    for name, (kernel, plain) in calls.items():
+        torch.cuda.synchronize()
+        launches, steps = label_prop.LAUNCHES.value, label_prop.STEPS.value
+        got = kernel()
+        torch.cuda.synchronize()
+        launches, steps = label_prop.LAUNCHES.value - launches, label_prop.STEPS.value - steps
+        with plain_label_loops():
+            with trace.recording():
+                want = plain()
+            (loop,) = [sp for sp in trace.records() if sp.name == "label_loop"]
+            plain_ms = cuda_ms(plain, 1)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                plain()
+                torch.cuda.synchronize()
+        plain_ops = sum(1 for ev in prof.profiler.kineto_results.events()
+                        if ev.device_type() == DeviceType.CUDA)
+        check(torch.equal(got, want), f"label_prop {name} == the Python loop "
+              f"({int((got != want).sum())} pixels differ)")
+        check(launches == 1, f"label_prop {name}: one launch ({launches})")
+        check(steps == loop.attrs["steps"],
+              f"label_prop {name}: {steps} steps on the card == the loop's {loop.attrs['steps']}")
+        for rep in range(3):
+            check(torch.equal(kernel(), want), f"label_prop {name}: repeat {rep} equal")
+        ms = cuda_ms(kernel, 5)
+        bound = label_bound_ms(mask.numel(), steps, 2)
+        step_bound = label_bound_ms(mask.numel(), steps, 1)
+        rows[name] = {"ms": ms, "steps": steps, "bound_ms": bound, "step_bound_ms": step_bound,
+                      "plain_ms": plain_ms, "plain_device_ops": plain_ops, "launches": launches}
+        print(f"label_prop {name} {tuple(mask.shape)} conn 8: equal to the Python loop, "
+              f"{launches} launch, {steps} steps (the loop's host syncs: {loop.attrs['steps']}); "
+              f"3 repeats equal; kernel {ms:.4f} ms ({ms / steps * 1e3:.2f} us a step), bound "
+              f"{bound:.4f} ms (bytes: 9 a pixel every two steps), {ms / bound:.2f}x bound; "
+              f"{step_bound:.4f} ms at 9 bytes a pixel a step; Python loop {plain_ms:.3f} ms, "
+              f"{plain_ops} device operations", flush=True)
+    print("library call: none (no one PyTorch call labels connected components or floods "
+          "from seeds)")
+    return rows
+
+
+def label_two_streams(mask: torch.Tensor, reps: int) -> None:
+    """Phase 14's concurrency check of the label loops' kernel
+    (``on_two_streams``): every result equals the first call's; the
+    launches and the steps counted on the card are exact."""
+    from repro_torch.kernels import label_prop
+
+    want = label_prop.label_components_cuda(mask, conn=8)
+    torch.cuda.synchronize()
+    steps0 = label_prop.STEPS.value
+    label_prop.label_components_cuda(mask, conn=8)
+    one = label_prop.STEPS.value - steps0
+    (serial_out, serial_s, serial), (got, both_s, both) = on_two_streams(
+        lambda: label_prop.label_components_cuda(mask, conn=8), reps,
+        (label_prop.LAUNCHES, label_prop.STEPS))
+    check(all(torch.equal(g, want) for g in serial_out + got) and len(got) == reps,
+          "label_prop: every call, one after another and from the two streams, equal")
+    check(both == serial == [reps, reps * one],
+          f"label_prop launches and steps: two streams {both}, serial {serial}, calls {reps} "
+          f"of {one} steps")
+    print(f"label_prop, area_pre input {tuple(mask.shape)} conn 8, {reps} calls of {one} steps: "
+          f"one after another {serial_s:.4f} s; two threads on two streams {both_s:.4f} s; all "
+          f"equal, launches and steps exact")
+
+
 def phase(name: str) -> None:
     print(f"\n== {name} [{time.perf_counter() - T0:.1f} s into the run]", flush=True)
 
@@ -2141,7 +2292,7 @@ def main() -> int:
     from repro_torch import configs
     from repro_torch.app import pipeline
     from repro_torch.core import halton_sequence, morris_trajectories, sa_serve
-    from repro_torch.kernels import flash_attention, morph_recon, nvcc, ssm_scan
+    from repro_torch.kernels import flash_attention, label_prop, morph_recon, nvcc, ssm_scan
     from repro_torch.kernels import ref as kref
     from repro_torch.models import decode_step, init_params, prefill
     from repro_torch.models import attention as attention_mod, model as model_mod, moe as moe_mod
@@ -2163,8 +2314,9 @@ def main() -> int:
     print("tf32: matmul off, cudnn off")
     # one nvcc for each kernel source, started together
     t_build = time.perf_counter()
-    build_pool = concurrent.futures.ThreadPoolExecutor(max_workers=4)
+    build_pool = concurrent.futures.ThreadPoolExecutor(max_workers=5)
     builds = {"morph_recon": build_pool.submit(morph_recon.build),
+              "label_prop": build_pool.submit(label_prop.build),
               "ssm_scan": build_pool.submit(ssm_scan.build),
               "flash_attention": build_pool.submit(flash_attention.build),
               "flash_attention_wgmma": build_pool.submit(flash_attention.build_wgmma)}
@@ -2182,6 +2334,7 @@ def main() -> int:
     # -- 2. build ---------------------------------------------------------
     phase("2 build")
     show_build("morph_recon")
+    show_build("label_prop")
 
     # -- 3. kernel vs plain version --------------------------------------
     phase("3 kernel vs plain version (torch.equal, atol=0)")
@@ -2242,6 +2395,7 @@ def main() -> int:
     print(f"max_abs_err {max_err}")
     print("library call: none (no one PyTorch call computes reconstruction by dilation; "
           "max_pool2d is one dilation step)")
+    label_row = label_prop_row(pipeline, tile)
     del cases
     torch.cuda.empty_cache()
 
@@ -2275,13 +2429,14 @@ def main() -> int:
 
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
-    for c in counters:
+    for c in counters + (label_prop.LAUNCHES, label_prop.STEPS):
         c.reset()
     t0 = time.perf_counter()
     out = pipeline.run_study(tile, sets, strategy="rmsr")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     study_launches, study_rounds, study_visits = (c.value for c in counters)
+    label_launches, label_steps = label_prop.LAUNCHES.value, label_prop.STEPS.value
     check(out["tasks_total"] == 8 * len(sets) == 128, f"tasks_total {out['tasks_total']} == 128")
     check(out["planned_tasks_executed"] == 71,
           f"planned tasks_executed {out['planned_tasks_executed']} == 71")
@@ -2292,6 +2447,8 @@ def main() -> int:
           f"cache_hits {out['cache_hits']}; reuse_fraction {out['reuse_fraction']}")
     print(f"morph_recon in the study: {study_launches} launches, {study_rounds} rounds, "
           f"{study_visits} tile visits")
+    check(label_launches > 0, "the study launched label_prop")
+    print(f"label_prop in the study: {label_launches} launches, {label_steps} steps")
     print(f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     print("dice " + " ".join(f"{d:.6f}" for d in out["dice"]))
     print("per-task seconds (tasks of the study and its reference run; each timed between syncs):")
@@ -2626,6 +2783,7 @@ def main() -> int:
     phase(f"14 dataset study: run_dataset_study over {DATASET_TILES} tiles of {SIZE}x{SIZE}")
     recon_launches = {"run_study": study_launches}
     two_streams(morph_recon, *recon_inputs(pipeline, tile)["seg2"], reps=8)
+    label_two_streams(label_inputs(pipeline, tile)["area_pre"], reps=8)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     tiles = [tile] + [mosaic_tile(pipeline, SEED_STEP * t) for t in range(1, DATASET_TILES)]
@@ -2815,6 +2973,19 @@ def main() -> int:
         "fill_holes_ms": timing[(f"fill-holes {SIZE}x{SIZE}", int(default["FH"]))][0],
         "rounds": study_rounds,
         "tile_visits": study_visits,
+    }, {
+        "name": "label_prop",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/label_prop.cu",
+        "replaces": None,
+        "launches": label_launches,
+        "steps": label_steps,
+        "ms": label_row["area_pre"]["ms"],
+        "plain_ms": label_row["area_pre"]["plain_ms"],
+        "bound_ms": label_row["area_pre"]["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "by_input": label_row,
     }, {
         "name": "ssm_scan",
         "route": "cuda",

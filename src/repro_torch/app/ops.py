@@ -9,9 +9,12 @@ goes through the kernel dispatch of :mod:`repro_torch.kernels.ops`: the CUDA
 kernel for tensors on the card, its plain version on the CPU. Both are exact.
 
 Connectivity parameters (FH / RC / WConn in Table I) are 4 or 8 and select
-the structuring element. Label and flooding loops run to their fixpoint with
-one host sync per step; each loop is a ``label_loop`` span whose ``steps``
-counts those syncs.
+the structuring element. Label and flooding loops run to their fixpoint: on
+the card in one launch of the :mod:`repro_torch.kernels.label_prop` kernel,
+which makes no host sync; on the CPU in the Python loops below, their plain
+versions, with one host sync per step. Each loop is a ``label_loop`` span
+whose ``steps`` counts those syncs and whose ``launches`` counts the
+kernel's launches.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch import trace
-from repro_torch.kernels import ops as kops
+from repro_torch.kernels import label_prop, ops as kops
 from repro_torch.kernels.ref import dilate, erode, neighbors as _neighbors, shift2d as _shift
 
 __all__ = [
@@ -98,6 +101,11 @@ def label_components(mask: torch.Tensor, conn: int = 8) -> torch.Tensor:
     Labels are flat int32 pixel indices (stable, deterministic); background
     = -1. The loop runs until fixpoint — bounded by the component diameter.
     """
+    if kops._on_card(mask, None):
+        with trace.span("label_loop", "pathology tasks") as sp:
+            labels = label_prop.label_components_cuda(mask.contiguous(), conn=conn)
+            sp.count(steps=0, launches=1)
+        return labels
     h, w = mask.shape
     big = h * w
     idx = torch.arange(h * w, dtype=torch.int32, device=mask.device).reshape(h, w)
@@ -165,11 +173,26 @@ def watershed_split(
     h, w = mask.shape
     big = h * w
     # merge plateau maxima into one seed per regional maximum
-    lab = torch.where(maxima, label_components(maxima, conn=8), big)
-    # Competitive multi-source BFS: unlabeled pixels take the min
-    # neighbouring label; labelled pixels never change, so basins stop at
-    # collision fronts (the watershed lines).
+    lab = _flood(torch.where(maxima, label_components(maxima, conn=8), big), pre, conn)
+    # split line: a pixel adjacent (4-conn) to a pixel of a different basin
+    boundary = torch.zeros_like(mask)
+    for dy, dx in _neighbors(4):
+        nb = _shift(lab, dy, dx, big)
+        boundary = boundary | ((nb != lab) & (nb != big) & (lab != big))
+    return pre & ~boundary
+
+
+def _flood(lab: torch.Tensor, pre: torch.Tensor, conn: int) -> torch.Tensor:
+    """Competitive multi-source BFS from the seeds ``lab`` (``h * w`` where
+    unlabelled): unlabeled pixels of ``pre`` take the min neighbouring
+    label; labelled pixels never change, so basins stop at collision fronts
+    (the watershed lines)."""
     with trace.span("label_loop", "pathology tasks") as sp:
+        if kops._on_card(lab, None):
+            lab = label_prop.flood_cuda(lab, pre.contiguous(), conn=conn)
+            sp.count(steps=0, launches=1)
+            return lab
+        big = lab.numel()
         steps = 0
         while True:
             nb = torch.full_like(lab, big)
@@ -181,9 +204,4 @@ def watershed_split(
                 break
             lab = new
         sp.count(steps=steps)
-    # split line: a pixel adjacent (4-conn) to a pixel of a different basin
-    boundary = torch.zeros_like(mask)
-    for dy, dx in _neighbors(4):
-        nb = _shift(lab, dy, dx, big)
-        boundary = boundary | ((nb != lab) & (nb != big) & (lab != big))
-    return pre & ~boundary
+    return lab

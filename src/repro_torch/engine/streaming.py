@@ -360,6 +360,11 @@ def execute_study(
     finally:
         if owns_manager:
             mgr.close()
+            # submit_stage and on_bucket refer to each other: unbroken, the
+            # cycle keeps the cache and the stages' outputs (device tensors)
+            # alive after the call until the next cyclic collection. The
+            # closed session calls neither again.
+            submit_stage = on_bucket = None  # noqa: F841
         elif not shared:
             # shared session: outputs were consumed via callbacks; release
             # the memoised results so a many-round study stays bounded.

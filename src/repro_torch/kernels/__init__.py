@@ -4,6 +4,9 @@ PyTorch versions (ref.py), their build (nvcc.py) and the device dispatch
 
 * ``morph_recon`` — morphological reconstruction by dilation (the paper's
   segmentation propagation hot-spot), CUDA C++ in ``csrc/morph_recon.cu``.
+* ``label_prop`` — the pathology path's label loops (connected components
+  and the watershed's seeded flood) run to their fixpoint on the card,
+  CUDA C++ in ``csrc/label_prop.cu`` (one cooperative launch a loop).
 * ``ssm_scan`` — the chunked diagonal-gated linear recurrence of RWKV-6 and
   Mamba2, CUDA C++ in ``csrc/ssm_scan.cu`` (parallel over chunks, three
   passes).

@@ -20,13 +20,12 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import threading
-from typing import Dict, Tuple
+from typing import Tuple
 
 import torch
 
 from repro_torch.kernels import nvcc
-from repro_torch.kernels.nvcc import NVCC_FLAGS, Build, LaunchCount
+from repro_torch.kernels.nvcc import NVCC_FLAGS, Build, DeviceTotal, DeviceTotals, LaunchCount
 from repro_torch.kernels.ref import MAX_PASSES, morph_reconstruct_ref, morph_reconstruct_tiled
 
 __all__ = [
@@ -82,42 +81,12 @@ def max_blocks(conn: int) -> Tuple[int, int]:
     return _max_blocks(conn, torch.cuda.current_device())
 
 
-class DeviceTotal:
-    """One of the counts the kernel adds to on the card (rounds, tile
-    visits), summed over calls. Reading ``value`` waits for the card; a call
-    of the kernel does not."""
-
-    _lock = threading.Lock()
-    _totals: Dict[torch.device, torch.Tensor] = {}  # guard: _lock
-
-    def __init__(self, index: int) -> None:
-        self._index = index
-
-    @classmethod
-    def buffer(cls, device: torch.device) -> torch.Tensor:
-        """The (rounds, visits) int64 pair the kernel adds to on ``device``."""
-        with cls._lock:
-            if device not in cls._totals:
-                cls._totals[device] = torch.zeros(2, dtype=torch.int64, device=device)
-            return cls._totals[device]
-
-    @property
-    def value(self) -> int:
-        with self._lock:
-            totals = list(self._totals.values())
-        return sum(int(t[self._index]) for t in totals)
-
-    def reset(self) -> None:
-        with self._lock:
-            for t in self._totals.values():
-                t[self._index] = 0
-
-
 # one per call of morph_reconstruct_cuda (one cooperative launch)
 LAUNCHES = LaunchCount()
 # the kernel's rounds and tile visits, summed over calls on the card
-ROUNDS = DeviceTotal(0)
-TILE_VISITS = DeviceTotal(1)
+_TOTALS = DeviceTotals(2)
+ROUNDS = DeviceTotal(_TOTALS, 0)
+TILE_VISITS = DeviceTotal(_TOTALS, 1)
 
 
 def morph_reconstruct_cuda(
@@ -168,7 +137,7 @@ def _launch(marker: torch.Tensor, mask: torch.Tensor, conn: int, *, grid_blocks:
         out = torch.empty_like(mask)
         scratch = torch.zeros(lib.morph_recon_scratch_ints(h, w), dtype=torch.int32,
                               device=marker.device)
-        totals = DeviceTotal.buffer(marker.device)
+        totals = _TOTALS.buffer(marker.device)
         err = lib.morph_recon(marker.data_ptr(), mask.data_ptr(), out.data_ptr(),
                               scratch.data_ptr(), totals.data_ptr(), h, w, conn, MAX_PASSES,
                               grid, stream)

@@ -20,7 +20,8 @@ import threading
 import time
 from typing import NamedTuple, Optional
 
-__all__ = ["NVCC_FLAGS", "Build", "LaunchCount", "build_library", "source"]
+__all__ = ["NVCC_FLAGS", "Build", "LaunchCount", "DeviceTotals", "DeviceTotal", "build_library",
+           "source"]
 
 _KERNELS = pathlib.Path(__file__).resolve().parent
 _BUILD_DIR = _KERNELS / "_build"
@@ -97,6 +98,51 @@ class LaunchCount:
     def reset(self) -> None:
         with self._lock:
             self.value = 0
+
+
+class DeviceTotals:
+    """Int64 counts that a kernel adds to on the card, summed over its
+    calls: one buffer of ``n`` on each device, made at the first call
+    there. Reading a count waits for the card; a call of the kernel does
+    not."""
+
+    def __init__(self, n: int) -> None:
+        self._n = n
+        self._lock = threading.Lock()
+        self._buffers: dict = {}  # guard: _lock
+
+    def buffer(self, device: "torch.device") -> "torch.Tensor":
+        """The int64 counts the kernel adds to on ``device``."""
+        import torch
+
+        with self._lock:
+            if device not in self._buffers:
+                self._buffers[device] = torch.zeros(self._n, dtype=torch.int64, device=device)
+            return self._buffers[device]
+
+    def value(self, index: int) -> int:
+        with self._lock:
+            buffers = list(self._buffers.values())
+        return sum(int(t[index]) for t in buffers)
+
+    def reset(self, index: int) -> None:
+        with self._lock:
+            for t in self._buffers.values():
+                t[index] = 0
+
+
+class DeviceTotal:
+    """One count of a :class:`DeviceTotals`, summed over devices."""
+
+    def __init__(self, totals: DeviceTotals, index: int) -> None:
+        self._totals, self._index = totals, index
+
+    @property
+    def value(self) -> int:
+        return self._totals.value(self._index)
+
+    def reset(self) -> None:
+        self._totals.reset(self._index)
 
 
 def check_forward_only(kernel: str, *inputs: "torch.Tensor") -> None:

@@ -100,6 +100,38 @@ class TestDatasetStudy:
         with pytest.raises(RuntimeError, match="CUDA"):
             run_adaptive_study(tiles)
 
+    @pytest.mark.parametrize("n_workers", [1, 2])
+    def test_the_study_frees_its_tensors_on_return(self, tiles, param_sets, monkeypatch,
+                                                   n_workers):
+        """No task output outlives the call in a reference cycle: with the
+        cyclic collector off, every normalized tile is freed once the
+        result is dropped (on the card a cycle held an item's cache, its
+        normalized tiles and masks, into the next item)."""
+        import gc
+        import weakref
+
+        from repro_torch.app import ops
+
+        made = []
+        normalize = ops.normalize_tile
+
+        def kept(rgb):
+            out = normalize(rgb)
+            made.append(weakref.ref(out))
+            return out
+
+        monkeypatch.setattr(ops, "normalize_tile", kept)
+        gc.collect()
+        gc.disable()
+        try:
+            out = run_dataset_study(tiles, param_sets, n_workers=n_workers, device="cpu")
+            assert len(made) == 2 * len(tiles)  # the study's and the reference's
+            del out
+            alive = sum(r() is not None for r in made)
+        finally:
+            gc.enable()
+        assert alive == 0
+
     @pytest.mark.parametrize("entry", [run_dataset_study, run_adaptive_study])
     def test_tiles_checked_as_the_reference_does(self, entry):
         args = [] if entry is run_adaptive_study else [[TABLE1_SPACE.default()]]

@@ -10,7 +10,13 @@
   at each instant (the deepest in the span tree; a ``label_loop`` named
   with its task), with the spans' counts: label-loop syncs, bucket waits,
   and buckets that ran more than once (straggler backups); and the host
-  time of one empty span, off and on.
+  time of one empty span, off and on;
+- the label loops' kernel (``kernels/label_prop``): its launches and the
+  steps it counted on the card over the profiled item; then, by task, the
+  same item's loops once more with each launch waited for and its steps
+  read (a lock around each launch, so that the two workers' steps stay
+  apart), and once with the Python loops (one host sync a step), whose
+  syncs the kernel's steps equal.
 
     python3 tools/trace_pathology.py --workload path4k.moat --pairs 5   # needs a CUDA card
 
@@ -26,6 +32,7 @@ import json
 import pathlib
 import statistics
 import sys
+import threading
 import time
 
 import torch
@@ -33,8 +40,10 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT), str(ROOT / "src")]
 
+from chip_smoke import plain_label_loops  # noqa: E402
 from perfbench import harness  # noqa: E402
 from repro_torch import trace  # noqa: E402
+from repro_torch.kernels import label_prop  # noqa: E402
 
 
 def idle_by_span(device, spans, lo, hi):
@@ -103,6 +112,64 @@ def span_cost_us(n=100_000):
     return off, on
 
 
+def label_loops_by_task(spans, extra=None):
+    """Loops, host syncs (``steps``) and kernel launches of the
+    ``label_loop`` spans by their task span's name, with ``extra``
+    ({label_loop span id: {name: count}}) added to each loop's task."""
+    by_id = {sp.id: sp for sp in spans}
+    out: dict = collections.defaultdict(collections.Counter)
+    for sp in spans:
+        if sp.name != "label_loop":
+            continue
+        task = out[by_id[sp.parent].name if sp.parent in by_id else "?"]
+        task["loops"] += 1
+        task["steps"] += sp.attrs.get("steps", 0)
+        task["launches"] += sp.attrs.get("launches", 0)
+        task.update((extra or {}).get(sp.id, {}))
+    return {k: dict(v) for k, v in sorted(out.items())}
+
+
+def kernel_steps_by_task(driver, item, sync):
+    """The item once more, each launch of the label loops' kernel waited
+    for and the steps it counted on the card read, under one lock (the two
+    workers' launches one at a time), by its ``label_loop`` span."""
+    lock = threading.Lock()
+    steps: dict = collections.defaultdict(collections.Counter)
+    wrapped = {}
+
+    def counted(fn):
+        def call(*args, **kw):
+            with lock:
+                sync()
+                before = label_prop.STEPS.value
+                out = fn(*args, **kw)
+                sync()
+                steps[trace.current().id]["device_steps"] += label_prop.STEPS.value - before
+            return out
+        return call
+
+    for name in ("label_components_cuda", "flood_cuda"):
+        wrapped[name] = getattr(label_prop, name)
+        setattr(label_prop, name, counted(wrapped[name]))
+    try:
+        with trace.recording():
+            driver.run_item(item)
+            sync()
+    finally:
+        for name, fn in wrapped.items():
+            setattr(label_prop, name, fn)
+    return label_loops_by_task(trace.records(), steps)
+
+
+def python_loops_by_task(driver, item, sync):
+    """The item once more with the label loops' Python versions on the
+    card (one host sync a step)."""
+    with plain_label_loops(), trace.recording():
+        driver.run_item(item)
+        sync()
+    return label_loops_by_task(trace.records())
+
+
 def measure(root, workload, pairs, seed, device):
     """The cost and the profiled item's split (see the module docstring)."""
     cell, config, mod = harness.find_cell(root, workload)
@@ -124,12 +191,16 @@ def measure(root, workload, pairs, seed, device):
     from torch.profiler import ProfilerActivity, profile
 
     activity = ProfilerActivity.CUDA if device.type == "cuda" else ProfilerActivity.CPU
+    sync()
+    launches0, steps0 = label_prop.LAUNCHES.value, label_prop.STEPS.value
     with profile(activities=[activity]) as prof:
         with trace.recording():
             lo = time.time_ns()
             runs = driver.run_item(pairs)
             sync()
             hi = time.time_ns()
+    kernel = {"launches": label_prop.LAUNCHES.value - launches0,
+              "steps": label_prop.STEPS.value - steps0}
     device_ops = harness._device_events(prof) if device.type == "cuda" else []
     spans = trace.records()
     cost_off_us, cost_on_us = span_cost_us()
@@ -139,11 +210,7 @@ def measure(root, workload, pairs, seed, device):
             runs_per_key[(sp.parent, sp.attrs.get("key"))].append(sp)
     loops = [sp for sp in spans if sp.name == "label_loop"]
     by_id = {sp.id: sp for sp in spans}
-    by_task: dict = collections.defaultdict(lambda: {"loops": 0, "steps": 0})
-    for sp in loops:
-        task = by_task[by_id[sp.parent].name if sp.parent in by_id else "?"]
-        task["loops"] += 1
-        task["steps"] += sp.attrs.get("steps", 0)
+    by_task = label_loops_by_task(spans)
     busy = sum(e - s for s, e in harness.union(harness.clip(
         [(s, e) for _, s, e in device_ops], lo, hi)))
     return {
@@ -155,7 +222,10 @@ def measure(root, workload, pairs, seed, device):
         "profiled_item_s": (hi - lo) / 1e9, "runs": runs,
         "device_idle_share": 1 - busy / (hi - lo),
         "idle_s_by_innermost_span": idle_by_span(device_ops, spans, lo, hi),
-        "label_loops_by_task": dict(by_task),
+        "label_loops_by_task": by_task,
+        "label_kernel": kernel,
+        "label_kernel_steps_by_task": kernel_steps_by_task(driver, pairs, sync),
+        "python_label_loops_by_task": python_loops_by_task(driver, pairs, sync),
         "syncs_per_run": sum(sp.attrs.get("steps", 0) for sp in loops) / runs,
         "bucket_wait_s": sum(sp.end_ns - sp.start_ns for sp in spans
                              if sp.name == "bucket.wait") / 1e9,
