@@ -14,9 +14,11 @@ from typing import Dict, Optional, Tuple
 
 __all__ = [
     "ModelConfig",
+    "Zamba2Config",
     "ShapeConfig",
     "SHAPES",
     "ARCH_IDS",
+    "PORT_ARCH_IDS",
     "get_config",
     "reduced_config",
     "supports_long_context",
@@ -140,6 +142,52 @@ class ModelConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class Zamba2Config(ModelConfig):
+    """Zyphra's Zamba2 layout (family ``zamba2``, ``models/zamba2.py``): a
+    stack of Mamba2 layers with ``ssm_ngroups`` groups of B and C and a
+    depthwise conv with bias over x, B and C; before the Mamba2 of each
+    layer in ``hybrid_layer_ids`` one of ``num_mem_blocks`` shared
+    attention+MLP blocks, taken in turn, runs over the concatenation of the
+    hidden stream and the embedding (width ``2 * d_model``; ``num_heads``
+    of ``head_dim``, logits scaled by ``(head_dim / 2) ** -0.5``), with a
+    gelu MLP of width ``d_ff``, a rank-``adapter_rank`` adapter on the MLP's
+    gate/up projection for each use and a ``d_model`` linear a use. The
+    embedding is tied to the LM head."""
+
+    hybrid_layer_ids: Tuple[int, ...] = ()
+    num_mem_blocks: int = 2
+    adapter_rank: int = 0
+    ssm_ngroups: int = 1
+
+    @property
+    def attn_width(self) -> int:
+        """The shared block's input: the hidden stream and the embedding."""
+        return 2 * self.d_model
+
+    @property
+    def attn_scale(self) -> float:
+        return (self.head_dim / 2) ** -0.5
+
+    @property
+    def ssm_conv_dim(self) -> int:
+        """Channels of the depthwise conv: x, then B and C of every group."""
+        return self.ssm_expand * self.d_model + 2 * self.ssm_ngroups * self.ssm_state
+
+    def layer_kinds(self) -> Tuple[str, ...]:
+        ids = set(self.hybrid_layer_ids)
+        return tuple("mamba+attn" if i in ids else "mamba" for i in range(self.num_layers))
+
+    def param_count(self) -> int:
+        d, d_in, h, f = self.d_model, self.ssm_expand * self.d_model, self.ssm_heads, self.d_ff
+        conv, attn = self.ssm_conv_dim, self.num_heads * self.head_dim
+        mamba = (d * (d_in + conv + h) + 4 * conv + conv + 3 * h + d_in + d_in * d + d)
+        block = (2 * d + self.attn_width * 3 * attn + attn * d + d + d * 2 * f + f * d)
+        use = self.adapter_rank * (d + 2 * f) + d * d
+        return int(self.padded_vocab * d + d + self.num_layers * mamba
+                   + self.num_mem_blocks * block + len(self.hybrid_layer_ids) * use)
+
+
+@dataclasses.dataclass(frozen=True)
 class ShapeConfig:
     name: str
     seq_len: int
@@ -168,10 +216,17 @@ ARCH_IDS = [
 ]
 
 
+# architectures of the port alone: the JAX package has no counterpart, and
+# ARCH_IDS stays equal to its list
+PORT_ARCH_IDS = [
+    "zamba2_7b",
+]
+
+
 def get_config(arch: str) -> ModelConfig:
     arch = arch.replace("-", "_").replace(".", "p")
-    if arch not in ARCH_IDS:
-        raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
+    if arch not in ARCH_IDS + PORT_ARCH_IDS:
+        raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS + PORT_ARCH_IDS}")
     mod = importlib.import_module(f"repro_torch.configs.{arch}")
     return mod.CONFIG
 
@@ -188,7 +243,14 @@ def supports_long_context(cfg: ModelConfig) -> bool:
 
 def reduced_config(cfg: ModelConfig) -> ModelConfig:
     """A smoke-test-sized config of the same family: small widths/depths,
-    few experts, tiny vocab — runs a real step on one CPU device."""
+    few experts, tiny vocab — runs a real step on one CPU device. A Zamba2
+    keeps two shared blocks alternating over three uses, its adapters, two
+    SSM groups and the concatenated embedding."""
+    if isinstance(cfg, Zamba2Config):
+        return dataclasses.replace(
+            cfg, num_layers=8, d_model=64, num_heads=4, num_kv_heads=4, head_dim=32, d_ff=128,
+            vocab_size=256, ssm_state=16, ssm_head_dim=16, hybrid_layer_ids=(1, 4, 6),
+            adapter_rank=8, ssm_ngroups=2)
     return dataclasses.replace(
         cfg,
         num_layers=min(cfg.num_layers, 4 if cfg.family != "hybrid" else 6),

@@ -1,6 +1,12 @@
-"""Zamba2 2.7B [arXiv:2411.15242]: 54 Mamba2 layers (d_model 2560,
-ssm_state 64) with a SHARED attention+MLP block (32 heads MHA, head_dim 80,
-d_ff 10240) applied every 6th layer, vocab 32000."""
+"""The JAX package's Zamba2 stand-in, named after Zamba2 2.7B
+[arXiv:2411.15242] but not Zyphra's layout: 54 Mamba2 layers (d_model 2560,
+ssm_state 64, one SSM group, a conv over x alone and without bias) and ONE
+shared attention+SwiGLU block (32 heads MHA, head_dim 80, over ``d_model``,
+d_ff 10240, no adapters) applied on the residual stream after every 6th
+layer, vocab 32000. Kept equal to the JAX package's config, which the CPU
+tests hold it to. Zyphra's published layout (two alternating shared blocks
+over the concatenated embedding, per-use adapters, grouped Mamba2) is
+``zamba2_7b``."""
 
 from repro_torch.configs.base import ModelConfig
 

@@ -16,6 +16,13 @@ activePaths bound caps how many caches are live against the device memory
 budget.
 
 Everything runs on the parameters' device; prompts (numpy) move there.
+
+Spans (:mod:`repro_torch.trace`, layer ``serve``): ``study`` (``runs``)
+around :func:`run_sa_serve`, ``serve.prefill`` (``tokens``, ``batch``),
+``serve.generate`` (``steps``) and, inside it, ``serve.decode_step``
+(``mamba_layers``, ``shared_blocks``: the recurrent layers and attention
+blocks a step runs; ``cache_bytes_copied``: the cache a step copies). No
+span waits for the device.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.params import ParamSet
 from repro_torch.core.workflow import StageSpec, TaskSpec, Workflow
@@ -46,6 +54,22 @@ def _cache_bytes(cfg: ModelConfig, batch: int, max_len: int) -> int:
     return sum(t.numel() * t.element_size() for t in _leaves(cache))
 
 
+def _step_counts(cfg: ModelConfig, cache) -> Dict[str, int]:
+    """What one decode step runs and copies: its Mamba2 layers, its
+    attention blocks run between them, and the bytes of the cache it copies
+    (the cache it is given is not modified): the keys and values, and a
+    ``zamba2`` step its states and conv carries too."""
+    copied = ["k", "v"]
+    if cfg.family == "zamba2":
+        mamba, shared, copied = cfg.num_layers, len(cfg.hybrid_layer_ids), copied + ["mamba"]
+    elif cfg.family == "hybrid":
+        mamba, shared = cfg.num_layers, cfg.num_layers // cfg.attn_every
+    else:
+        mamba, shared = 0, 0
+    return {"mamba_layers": mamba, "shared_blocks": shared, "cache_bytes_copied": sum(
+        t.numel() * t.element_size() for k in copied if k in cache for t in _leaves(cache[k]))}
+
+
 def build_serve_stage(
     cfg: ModelConfig,
     params,
@@ -59,7 +83,9 @@ def build_serve_stage(
 
     def t_prefill(state, prompt_id):
         toks = torch.from_numpy(np.asarray(prompts[int(prompt_id)])).to(dev)
-        logits, cache, ln = prefill(cfg, params, {"tokens": toks}, max_len=max_len)
+        with trace.span("serve.prefill", "serve", tokens=int(toks.numel()),
+                        batch=int(toks.shape[0])):
+            logits, cache, ln = prefill(cfg, params, {"tokens": toks}, max_len=max_len)
         return {"cache": cache, "len": ln, "last_logits": logits, "tokens": toks}
 
     def t_generate(state, rep_penalty, top_k):
@@ -72,20 +98,25 @@ def build_serve_stage(
         out_ids: List[torch.Tensor] = []
         confidences: List[torch.Tensor] = []
         seen = torch.zeros((b, cfg.padded_vocab), dtype=torch.float32, device=dev)
-        for i in range(gen_len):
-            adj = logits - log_penalty * seen
-            # the first maximal index, as lax.top_k(adj, top_k)[1][:, 0]
-            # takes it; top_k changes no token, in either package
-            nxt = torch.argmax(adj, dim=-1)
-            probs = torch.softmax(adj, dim=-1)
-            confidences.append(probs.gather(1, nxt[:, None])[:, 0])
-            seen = seen.index_put((rows, nxt), ones, accumulate=True)
-            out_ids.append(nxt)
-            logits, cache = decode_step(cfg, params, {"tokens": nxt[:, None]}, cache, ln + i)
+        counts = _step_counts(cfg, cache)
+        with trace.span("serve.generate", "serve", steps=gen_len):
+            for i in range(gen_len):
+                adj = logits - log_penalty * seen
+                # the first maximal index, as lax.top_k(adj, top_k)[1][:, 0]
+                # takes it; top_k changes no token, in either package
+                nxt = torch.argmax(adj, dim=-1)
+                probs = torch.softmax(adj, dim=-1)
+                confidences.append(probs.gather(1, nxt[:, None])[:, 0])
+                seen = seen.index_put((rows, nxt), ones, accumulate=True)
+                out_ids.append(nxt)
+                with trace.span("serve.decode_step", "serve", **counts):
+                    logits, cache = decode_step(cfg, params, {"tokens": nxt[:, None]}, cache,
+                                                ln + i)
         return {"ids": torch.stack(out_ids, 1), "conf": torch.stack(confidences, 1)}
 
     def t_score(state, threshold):
-        return {"accept_rate": (state["conf"] > threshold).float().mean()}
+        return {"accept_rate": (state["conf"] > threshold).float().mean(),
+                "ids": state["ids"], "conf": state["conf"]}
 
     any_prompt = next(iter(prompts.values()))
     cache_b = _cache_bytes(cfg, any_prompt.shape[0], max_len)
@@ -119,24 +150,27 @@ def run_sa_serve(
 
     The default ``"rmsr"`` policy merges maximally and solves activePaths
     against the memory budget; ``"hybrid"`` additionally buckets for
-    multi-worker dispatch. Returns per-run accept rates plus the
-    reuse/scheduling accounting."""
+    multi-worker dispatch. Returns per-run accept rates, each run's
+    generated ids (B, gen_len) and their confidences (on the parameters'
+    device), plus the reuse/scheduling accounting."""
     from repro_torch.engine import ClusterSpec, MemoryBudget, execute_plan, plan_study
 
-    stage = build_serve_stage(cfg, params, prompts, gen_len=gen_len, max_len=max_len)
-    wf = Workflow(stages=(stage,))
-    plan = plan_study(
-        wf,
-        list(param_sets),
-        memory=MemoryBudget(bytes=hbm_budget_bytes),
-        cluster=ClusterSpec(n_workers=n_workers),
-        policy=policy,
-    )
-    result = execute_plan(plan, {})
+    with trace.span("study", "serve", runs=len(param_sets)):
+        stage = build_serve_stage(cfg, params, prompts, gen_len=gen_len, max_len=max_len)
+        wf = Workflow(stages=(stage,))
+        plan = plan_study(
+            wf,
+            list(param_sets),
+            memory=MemoryBudget(bytes=hbm_budget_bytes),
+            cluster=ClusterSpec(n_workers=n_workers),
+            policy=policy,
+        )
+        result = execute_plan(plan, {})
+        accept = {rid: float(res["accept_rate"]) for rid, res in result.outputs.items()}
     return {
-        "accept_rate": {
-            rid: float(res["accept_rate"]) for rid, res in result.outputs.items()
-        },
+        "accept_rate": accept,
+        "ids": {rid: res["ids"] for rid, res in result.outputs.items()},
+        "conf": {rid: res["conf"] for rid, res in result.outputs.items()},
         "tasks_total": plan.tasks_total,
         # measured count (cache hits subtracted) — same semantics as the
         # pathology studies; the plan's analytic count rides alongside

@@ -29,6 +29,7 @@ the kv heads are not, each rank takes the kv heads of its own q heads.
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -49,6 +50,14 @@ def _scale(q: torch.Tensor) -> float:
     model's q); PyTorch would multiply by the unrounded value. ``q *
     _scale(q)`` is then JAX's product: exact in fp32, rounded once."""
     return float(torch.tensor(1.0 / (q.shape[-1] ** 0.5), dtype=q.dtype))
+
+
+def _scaled_q32(q: torch.Tensor, scale: Optional[float]) -> torch.Tensor:
+    """q times the logits' scale, in fp32: JAX's product rounded to bf16
+    where ``scale`` is None, else ``scale`` applied in fp32."""
+    if scale is None:
+        return (q * _scale(q)).to(COMPUTE_DTYPE).float()
+    return q.float() * float(scale)
 
 
 def _on_shards(fn, ctx, q, k, v):
@@ -88,21 +97,27 @@ def blocked_attention(
     chunk: int = 1024,
     train: bool = False,  # the differentiable route, on either device
     ctx=None,  # ParallelCtx (repro_torch.dist) or None
+    scale: Optional[float] = None,  # None: 1/sqrt(D) rounded to q's dtype, as JAX
 ) -> torch.Tensor:
     """Causal (+ sliding-window / prefix-LM) attention with an fp32
     streaming softmax. On the card, unless ``train``: the kernels. On the
     CPU, and for training: the JAX package's arithmetic over key chunks of
     ``chunk``, which autograd differentiates. On a mesh: the same on each
-    rank's shard."""
+    rank's shard. A given ``scale`` multiplies the logits in fp32 (the
+    kernels take it as it is; the plain route scales fp32 q), where the
+    default scales q in its own dtype as the JAX package does."""
     if on_mesh(ctx):
         fn = functools.partial(blocked_attention, window=window, q_offset=q_offset,
-                               prefix_len=prefix_len, chunk=chunk, train=train)
+                               prefix_len=prefix_len, chunk=chunk, train=train, scale=scale)
         return _on_shards(fn, ctx, q, k, v)
     b, sq, h, d = q.shape
     sk, kv = k.shape[1], k.shape[2]
     if not train and kops._on_card(q, None):
         # a window that reaches past every key masks nothing
         w = None if window >= sk + q_offset else int(window)
+        if scale is not None:
+            return flash_attention_cuda(q, k, v, causal=True, window=w, q_offset=q_offset,
+                                        prefix_len=int(prefix_len), scale=float(scale))
         # q scaled in its dtype as JAX scales it, so the kernels take scale 1
         return flash_attention_cuda(q * _scale(q), k, v, causal=True, window=w,
                                     q_offset=q_offset, prefix_len=int(prefix_len), scale=1.0)
@@ -113,7 +128,7 @@ def blocked_attention(
     v = F.pad(v, (0, 0, 0, 0, 0, pad))
     qpos = (torch.arange(sq, device=q.device) + q_offset)[:, None]  # (Sq, 1)
     # bf16 operands, fp32 products and sums (preferred_element_type=f32)
-    q32 = (q * _scale(q)).to(COMPUTE_DTYPE).float().transpose(1, 2)  # (B, H, Sq, D)
+    q32 = _scaled_q32(q, scale).transpose(1, 2)  # (B, H, Sq, D)
     m = torch.full((b, h, sq), _NEG, dtype=torch.float32, device=q.device)
     l = torch.zeros_like(m)
     acc = torch.zeros((b, h, sq, d), dtype=torch.float32, device=q.device)
@@ -146,11 +161,12 @@ def decode_attention(
     *,
     window: int,  # full = S
     ctx=None,  # ParallelCtx (repro_torch.dist) or None
+    scale: Optional[float] = None,  # as blocked_attention's
 ) -> torch.Tensor:
     """One-token attention against the full cache, masked to the valid
     positions within the window; on a mesh, on each rank's shard."""
     if on_mesh(ctx):
-        fn = functools.partial(decode_attention, cur_len=cur_len, window=window)
+        fn = functools.partial(decode_attention, cur_len=cur_len, window=window, scale=scale)
         return _on_shards(fn, ctx, q, k_cache, v_cache)
     b, _, h, d = q.shape
     s, kv = k_cache.shape[1], k_cache.shape[2]
@@ -158,9 +174,9 @@ def decode_attention(
     kpos = torch.arange(s, device=q.device)
     mask = (kpos < cur_len) & (kpos >= cur_len - window)
     # group q heads onto their kv head: h = kv * rep
-    qg = (q.reshape(b, 1, kv, rep, d) * _scale(q)).to(COMPUTE_DTYPE)
+    qg = _scaled_q32(q.reshape(b, 1, kv, rep, d), scale)
     lg = torch.einsum(
-        "bqgrd,bkgd->bgrqk", qg.float(), k_cache.to(COMPUTE_DTYPE).float()
+        "bqgrd,bkgd->bgrqk", qg, k_cache.to(COMPUTE_DTYPE).float()
     )  # (B, KV, rep, 1, S)
     lg = lg.masked_fill(~mask, _NEG)
     p = torch.softmax(lg, dim=-1).to(COMPUTE_DTYPE)

@@ -13,7 +13,11 @@ for every family of the JAX package's ``repro.models.model``:
     with a per-head decay), with ONE weight-shared attention+MLP block
     applied after every super-block; its prefill attention runs the
     ``flash_attention`` kernel;
-  * ``ssm`` (RWKV-6): time mixing runs the ``ssm_scan`` kernel.
+  * ``ssm`` (RWKV-6): time mixing runs the ``ssm_scan`` kernel;
+  * ``zamba2`` (Zyphra's Zamba2-7B, a family of the port alone): Mamba2
+    with grouped B and C, and two alternating shared blocks over the
+    concatenated embedding with per-use adapters, in
+    :mod:`repro_torch.models.zamba2`; served only, on one device.
 An unknown family raises ``ValueError``, as in the JAX package.
 
 Training takes the plain versions of the kernels on either device (the
@@ -61,6 +65,7 @@ from repro_torch.device import resolve_device
 from repro_torch.dist.sharding import (P, as_dtensor, batch_spec, constrain_hidden, constrain_qkv,
                                        on_mesh, placements, replicate_plain, shard_map_compat)
 from repro_torch.models import ssm as ssm_mod
+from repro_torch.models import zamba2
 from repro_torch.models.attention import blocked_attention, decode_attention
 from repro_torch.models.layers import (COMPUTE_DTYPE, apply_rope, cross_entropy, dense_ffn,
                                       matmul, normal_init, rms_norm, token_nll)
@@ -79,12 +84,17 @@ BF16_WEIGHTS = frozenset({
 })
 
 _TRANSFORMERS = ("dense", "moe", "vlm", "audio")
-_FAMILIES = _TRANSFORMERS + ("hybrid", "ssm")
+_FAMILIES = _TRANSFORMERS + ("hybrid", "ssm", "zamba2")
 
 
 def _check_family(cfg: ModelConfig) -> None:
     if cfg.family not in _FAMILIES:
         raise ValueError(cfg.family)
+
+
+def _zamba2_off_mesh(ctx) -> None:
+    if on_mesh(ctx):
+        raise NotImplementedError("the zamba2 family runs on one device")
 
 
 def _analysis(ctx) -> bool:
@@ -219,6 +229,8 @@ def init_params(
         gen = torch.Generator(device=dev).manual_seed(int(seed_or_generator))
     d, vp = cfg.d_model, cfg.padded_vocab
     wdt = torch.float32 if masters else COMPUTE_DTYPE
+    if cfg.family == "zamba2":
+        return zamba2.init_params(cfg, gen, dev, wdt)
     params: Dict[str, Any] = {"final_norm": torch.zeros(d, dtype=torch.float32, device=dev)}
     if cfg.family == "audio":  # no token embedding: one head per codebook
         params["lm_head"] = normal_init(gen, (d, cfg.num_codebooks * vp), 0.02,
@@ -443,6 +455,8 @@ def forward_train(cfg: ModelConfig, params, batch, ctx=None) -> torch.Tensor:
     around the backward pass, after this returns
     (``launch.steps.make_train_step`` does)."""
     _check_family(cfg)
+    if cfg.family == "zamba2":
+        raise NotImplementedError("the zamba2 family is served only: no training forward")
     with replicate_plain(ctx):
         x, prefix_len = _embed_inputs(cfg, params, batch, ctx)
         b, s, _ = x.shape
@@ -503,9 +517,13 @@ def init_cache(
     whatever the length; a Zamba2 cache holds each Mamba2 layer's state and
     conv carry under ``"mamba"`` (super-block, layer, ...), and the shared
     attention's keys and values at each of its applications (super-block,
-    B, max_len, KV, hd). ``device="meta"`` sizes it without memory."""
+    B, max_len, KV, hd); a ``zamba2`` cache likewise, with a KV cache for
+    each use of its shared blocks (:func:`repro_torch.models.zamba2.init_cache`).
+    ``device="meta"`` sizes it without memory."""
     _check_family(cfg)
     dev = resolve_device(device)
+    if cfg.family == "zamba2":
+        return zamba2.init_cache(cfg, batch, max_len, dev)
     if cfg.family in _TRANSFORMERS:
         kv_shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
         return {
@@ -590,6 +608,9 @@ def decode_step(cfg: ModelConfig, params, batch, cache, cur_len: int, ctx=None):
     (logits fp32 (B, V), audio's (B, codebooks * V), new cache); ``cache``
     is not modified."""
     _check_family(cfg)
+    if cfg.family == "zamba2":
+        _zamba2_off_mesh(ctx)
+        return zamba2.decode_step(cfg, params, batch["tokens"], cache, int(cur_len))
     with replicate_plain(ctx):
         x = _embed_step(cfg, params, batch, ctx)
         if cfg.family in _TRANSFORMERS:
@@ -690,6 +711,9 @@ def prefill(cfg: ModelConfig, params, batch, max_len: int, ctx=None):
     S)}; vlm also {"patch_embeds": (B, num_patches, D)}, put before the
     tokens; audio {"frame_embeds": (B, S, D)} only."""
     _check_family(cfg)
+    if cfg.family == "zamba2":
+        _zamba2_off_mesh(ctx)
+        return zamba2.prefill(cfg, params, batch["tokens"], max_len)
     with replicate_plain(ctx):
         x, prefix_len = _embed_inputs(cfg, params, batch, ctx)
         x = constrain_hidden(x, cfg, ctx)

@@ -1,5 +1,7 @@
-"""State-space blocks: Mamba2 (SSD), and RWKV-6 (Finch) time mixing and
-channel mixing.
+"""State-space blocks: Mamba2 (SSD), in the JAX package's layout and in
+Zyphra's published one (``mamba2_grouped_*``: B and C in groups, the conv
+over x, B and C with a bias, the gated RMSNorm a group), and RWKV-6
+(Finch) time mixing and channel mixing.
 
 Both reduce to the diagonal-gated linear recurrence of
 :func:`repro_torch.kernels.ops.ssm_scan`:
@@ -35,6 +37,9 @@ from repro_torch.models.layers import COMPUTE_DTYPE, matmul, rms_norm
 __all__ = [
     "mamba2_block",
     "mamba2_decode",
+    "mamba2_grouped_block",
+    "mamba2_grouped_decode",
+    "mamba2_grouped_init_cache",
     "mamba2_init_cache",
     "mamba2_scan_inputs",
     "rwkv6_block",
@@ -51,10 +56,12 @@ __all__ = [
 _CONV_K = 4
 
 
-def _causal_conv(x: torch.Tensor, w: torch.Tensor, prev: Optional[torch.Tensor] = None):
-    """Depthwise causal conv, kernel _CONV_K. x: (B, S, C); w: (K, C).
-    ``prev``: (B, K-1, C) carry-in state. Returns (y, new_prev). The taps
-    are multiplied and summed in x's dtype, one rounding an operation."""
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, prev: Optional[torch.Tensor] = None,
+                 bias: Optional[torch.Tensor] = None):
+    """Depthwise causal conv, kernel _CONV_K, then SiLU. x: (B, S, C); w:
+    (K, C); ``bias`` (C,), added in fp32 before the SiLU. ``prev``: (B,
+    K-1, C) carry-in state. Returns (y, new_prev). The taps are multiplied
+    and summed in x's dtype, one rounding an operation."""
     b, s, c = x.shape
     if prev is None:
         prev = torch.zeros((b, _CONV_K - 1, c), dtype=x.dtype, device=x.device)
@@ -62,7 +69,8 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, prev: Optional[torch.Tensor] 
     y = xp[:, 0:s] * w[0]
     for i in range(1, _CONV_K):
         y = y + xp[:, i : i + s] * w[i]
-    return F.silu(y.float()).to(x.dtype), xp[:, -(_CONV_K - 1):]
+    y = y.float() if bias is None else y.float() + bias.float()
+    return F.silu(y).to(x.dtype), xp[:, -(_CONV_K - 1):]
 
 
 def _mamba_project(x, p, cfg):
@@ -161,6 +169,94 @@ def mamba2_decode(
     )
     y = torch.einsum("bhnp,bhn->bhp", state, cc[:, 0, None, :].expand(b, h, n).float())
     return _mamba_readout(y[:, None], xh, z, p, cfg), {"state": state, "conv": conv_new}
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 as Zyphra publishes it (Zamba2-7B)
+# ---------------------------------------------------------------------------
+
+
+def _group_norm_gated(y, z, p, cfg):
+    """``RMSNormGated``: y·SiLU(z) normalised over each group's d_inner / G
+    channels in fp32, scaled by 1 + ``norm``, in bf16. y: (..., d_inner)."""
+    y = y.float() * F.silu(z.float())
+    shape, g = y.shape, cfg.ssm_ngroups
+    y = F.rms_norm(y.reshape(*shape[:-1], g, shape[-1] // g), (shape[-1] // g,), None, cfg.norm_eps)
+    return (y.reshape(shape) * (1.0 + p["norm"])).to(COMPUTE_DTYPE)
+
+
+def _decay(dt, p):
+    """dt = softplus(dt + dt_bias) and the decay exp(−dt·exp(A_log)), fp32."""
+    dt = F.softplus(dt.float() + p["dt_bias"])
+    return dt, torch.exp(dt * -torch.exp(p["a_log"]))
+
+
+def _per_head(t: torch.Tensor, heads: int) -> torch.Tensor:
+    """(B, S, G, N) -> (B, S, H, N): each head takes its group's row, head
+    h group h // (H / G). A copy: the scan kernel reads (B, S, H, N)."""
+    return t.repeat_interleave(heads // t.shape[2], dim=2)
+
+
+def mamba2_grouped_block(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg, *,
+                         return_cache: bool = False):
+    """Zyphra's Mamba2 mixer, prefill. x: (B, S, D) -> (B, S, D):
+    in-projection to z, xBC and dt; the depthwise conv (bias, then SiLU)
+    over xBC; the scan (the kernel on the card), which takes B times dt
+    and C copied to every head of their group; the D·x skip, the gated
+    norm of each group, out-projection. ``return_cache`` also returns the
+    final state and the conv carry."""
+    b, s, _ = x.shape
+    d_in, g, n, h = cfg.ssm_expand * cfg.d_model, cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_heads
+    z, xbc, dt = torch.split(matmul(x, p["in_proj"]), [d_in, cfg.ssm_conv_dim, h], dim=-1)
+    xbc, conv = _causal_conv(xbc, p["conv_w"].to(COMPUTE_DTYPE), bias=p["conv_b"])
+    xs, bg, cg = torch.split(xbc, [d_in, g * n, g * n], dim=-1)
+    dt, a = _decay(dt, p)
+    xh = xs.reshape(b, s, h, cfg.ssm_head_dim)
+    beff = (_per_head(bg.reshape(b, s, g, n), h) * dt[..., None]).to(COMPUTE_DTYPE)
+    y, hfinal = _scan(xh, a, beff, _per_head(cg.reshape(b, s, g, n), h), train=False,
+                      analysis=False, ctx=None)
+    y = y.float() + p["d_skip"][:, None] * xh.float()
+    out = matmul(_group_norm_gated(y.reshape(b, s, d_in), z, p, cfg), p["out_proj"])
+    if return_cache:
+        return out, {"state": hfinal, "conv": conv}
+    return out
+
+
+def mamba2_grouped_init_cache(cfg, batch: int, dtype=torch.float32, *,
+                              device=None) -> Dict[str, torch.Tensor]:
+    h, n, pdim = cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim
+    return {
+        "state": torch.zeros((batch, h, n, pdim), dtype=torch.float32, device=device),
+        "conv": torch.zeros((batch, _CONV_K - 1, cfg.ssm_conv_dim), dtype=dtype, device=device),
+    }
+
+
+def mamba2_grouped_decode(
+    x: torch.Tensor, p: Dict[str, torch.Tensor], cfg, cache: Dict[str, torch.Tensor],
+    out: Dict[str, torch.Tensor],
+) -> torch.Tensor:
+    """x: (B, 1, D) -> (B, 1, D); O(1) state update, in fp32 after the
+    in-projection (the conv's taps summed in fp32 too), each head reading
+    its group's B and C without a copy, in few launches: decoding is bound
+    by them. The new state and conv carry are written into ``out``'s
+    tensors (shaped as ``cache``'s); ``cache`` is not modified."""
+    b = x.shape[0]
+    d_in, g, n, h, pd = (cfg.ssm_expand * cfg.d_model, cfg.ssm_ngroups, cfg.ssm_state,
+                         cfg.ssm_heads, cfg.ssm_head_dim)
+    z, xbc, dt = torch.split(matmul(x[:, 0], p["in_proj"]), [d_in, cfg.ssm_conv_dim, h], dim=-1)
+    taps = torch.cat([cache["conv"], xbc[:, None]], dim=1)  # (B, K, C)
+    out["conv"].copy_(taps[:, 1:])
+    xbc = F.silu(torch.einsum("bkc,kc->bc", taps.float(), p["conv_w"].float()) + p["conv_b"])
+    xs, bg, cg = torch.split(xbc, [d_in, g * n, g * n], dim=-1)
+    dt, a = _decay(dt, p)
+    xh = xs.reshape(b, g, h // g, pd)
+    dx = dt.reshape(b, g, h // g, 1) * xh  # (B, G, H/G, P)
+    state = cache["state"].reshape(b, g, h // g, n, pd) * a.reshape(b, g, h // g, 1, 1)
+    state = torch.add(state, bg.reshape(b, g, 1, n, 1) * dx[:, :, :, None, :],
+                      out=out["state"].view(b, g, h // g, n, pd))
+    y = torch.einsum("bghnp,bgn->bghp", state, cg.reshape(b, g, n))
+    y = (y + p["d_skip"].reshape(g, h // g, 1) * xh).reshape(b, 1, d_in)
+    return matmul(_group_norm_gated(y, z[:, None], p, cfg), p["out_proj"])
 
 
 # ---------------------------------------------------------------------------
