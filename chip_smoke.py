@@ -44,10 +44,20 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
     kernel and bf16 on the tensor-core one; then at the prefill's real
     shape and types (the shared block's first application in Zamba2 2.7B),
     with both kernels' times, the bound, the plain time and the time of
-    PyTorch's ``scaled_dot_product_attention`` on the same tensors;
+    PyTorch's ``scaled_dot_product_attention`` on the same tensors; then
+    the decode kernel (``decode_attention``, every serve path's decode
+    attention on the card) at Zamba2-7B's decode shape, gemma3_1b's
+    512-key window and the decode shapes of Zamba2 2.7B, granite-moe and
+    PaliGemma against its plain arithmetic, with its time, byte bound, the
+    plain time and that of ``scaled_dot_product_attention`` on the bf16
+    cache with a mask;
 12. the SA-serve study on Zamba2 2.7B at full width: 3 prompts of 4096
     tokens × 12 decoding settings × 3 thresholds, counting the kernels'
-    launches (attention on the tensor-core kernel only);
+    launches (prefill attention on the tensor-core kernel only, decode
+    attention on the decode kernel, once a shared block and step; the
+    serve studies of phases 20 and 21, phase 22's decode steps and phase
+    26's mesh decode steps count it too, once a layer and step, and phase
+    8's RWKV-6 study none);
 13. the same serve study code on card and CPU on the reduced Zamba2;
 14. ``morph_recon`` and ``label_prop`` launched from two threads on two
     streams at once against their plain versions, then the dataset study,
@@ -185,6 +195,9 @@ ARCH = "rwkv6_1p6b"
 PROMPTS, PROMPT_LEN, GEN_LEN = 3, 1024, 16
 ZAMBA, Z_PROMPT_LEN = "zamba2_2p7b", 4096
 PENALTIES, TOP_KS = (1.0, 1.3), (4, 16)
+# a serve study's decode steps: one generate of GEN_LEN steps a (prompt, rep_penalty,
+# top_k), 12 of the 51 tasks the planner executes
+SERVE_DECODE_STEPS = PROMPTS * len(PENALTIES) * len(TOP_KS) * GEN_LEN
 # (B, S, H, N, P, chunk) and (S, chunk, per_channel, seed): the cases of
 # tests/test_kernel_ssm_scan.py and tests/test_torch_ssm_scan.py
 SCAN_SHAPES = [(1, 16, 1, 4, 4, 8), (2, 32, 2, 8, 16, 8), (1, 33, 1, 8, 8, 16),
@@ -193,6 +206,16 @@ SCAN_SWEEP = [(4, 4, False, 0), (17, 8, True, 11), (33, 32, False, 5), (50, 16, 
               (64, 4, True, 7), (70, 32, True, 999), (9, 16, False, 42)]
 # (b, s, h, kv, d), windows, and (s, h, window, seed): the cases of
 # tests/test_kernel_flash_attention.py and tests/test_torch_flash_attention.py
+# the decode kernel's rows: (batch, cache length, kv heads, q heads a kv head, head dim,
+# valid positions, window, scale): Zamba2-7B's decode step (its 13 calls a step),
+# gemma3_1b's 512-key local window, and the last decode step of phases 12, 21 and 22 on
+# Zamba2 2.7B (D 80: three rows a warp), granite_moe_1b_a400m (D 64, two q heads a kv head)
+# and paligemma_3b (eight q heads on its one kv head)
+DECODE_SHAPES = {"zamba2_7b": (8, 3648, 32, 1, 224, 3648, 2**30, (224 / 2) ** -0.5),
+                 "gemma3_1b window": (1, 4096, 1, 4, 256, 4096, 512, None),
+                 "zamba2_2p7b": (1, 4112, 32, 1, 80, 4112, 2**30, None),
+                 "granite_moe_1b_a400m": (1, 4112, 8, 2, 64, 4112, 2**30, None),
+                 "paligemma_3b": (1, 1296, 1, 8, 256, 1296, 2**30, None)}
 FA_CAUSAL = [(1, 64, 2, 2, 32), (2, 128, 4, 2, 32), (1, 96, 4, 1, 16), (1, 80, 2, 2, 64)]
 FA_WINDOWS = [8, 32, 100]
 FA_PROPERTY = [(8, 1, None, 0), (17, 2, 4, 11), (33, 4, 64, 5), (50, 1, 16, 100),
@@ -588,12 +611,15 @@ def prefill_card_vs_cpu(rcfg, cpu_params, card_params, batch, prefill):
 
 
 def transformer_study(arch, configs, init_params, sa_serve, *, cache_bytes, peak_bytes,
-                      launches, silent):
+                      launches, decode, silent):
     """Phases 20 and 21: the 36-set SA-serve study (``serve_study``) on a
     transformer at full width and depth, random weights seeded on the card,
     PROMPTS prompts of Z_PROMPT_LEN tokens. ``launches``: {kernel:
-    (LaunchCount, launches a layer and prefill)}. Returns (cfg, params,
-    prompts, the study's result)."""
+    (LaunchCount, launches a layer and prefill)}; ``decode``: the decode
+    kernel's LaunchCount, a launch a layer and decode step. Returns (cfg,
+    params, prompts, the study's result)."""
+    from repro_torch.models import decode_attention_calls
+
     cfg = configs.get_config(arch)
     rng = np.random.default_rng(0)
     prompts = {pid: rng.integers(0, cfg.vocab_size, (1, Z_PROMPT_LEN)).astype(np.int32)
@@ -613,8 +639,10 @@ def transformer_study(arch, configs, init_params, sa_serve, *, cache_bytes, peak
                       expected={"tasks_total": 108, "planned_tasks_executed": 51,
                                 "tasks_executed": 51, "reuse_fraction": 57 / 108,
                                 "active_paths": 2, "peak_bytes": peak_bytes},
-                      launches={name: (c, n * cfg.num_layers * PROMPTS)
-                                for name, (c, n) in launches.items()},
+                      launches={**{name: (c, n * cfg.num_layers * PROMPTS)
+                                   for name, (c, n) in launches.items()},
+                                "decode_attention": (decode, decode_attention_calls(cfg)
+                                                     * SERVE_DECODE_STEPS)},
                       silent=silent, sa_serve=sa_serve)
     return cfg, params, prompts, out
 
@@ -730,16 +758,18 @@ def prefix_attention(flash_attention, kref, pcfg, s):
                      f"{pcfg.num_patches},", shape, prefix_len=pcfg.num_patches)
 
 
-def lm_prefill_decode(cfg, params, batch, prefill, decode_step, *, launches, silent, seed):
+def lm_prefill_decode(cfg, params, batch, prefill, decode_step, *, launches, decode, silent,
+                      seed):
     """Phase 22: one full-width prefill and GEN_LEN decode steps, each
     timed between syncs. ``launches``: {kernel: (LaunchCount, launches the
-    prefill must make)}, counted from 0 just before it; ``silent``: counts
-    that stay 0. Decoding is plain PyTorch (no kernel launch). Tokens are
-    the greedy ones; audio's frame embeddings are seeded. Returns {path:
-    launches}."""
+    prefill must make)}, counted from 0 just before it; ``decode``: {kernel:
+    (LaunchCount, launches the decode steps must make)}, none in the
+    prefill; ``silent``: counts that stay 0. Tokens are the greedy ones;
+    audio's frame embeddings are seeded. Returns {kernel: launches}."""
     n = sum(v.shape[1] for v in batch.values())
     heads = cfg.num_codebooks if cfg.family == "audio" else 1
-    for counter in [c for c, _ in launches.values()] + list(silent.values()):
+    for counter in ([c for c, _ in launches.values()] + [c for c, _ in decode.values()]
+                    + list(silent.values())):
         counter.reset()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -750,7 +780,7 @@ def lm_prefill_decode(cfg, params, batch, prefill, decode_step, *, launches, sil
     counts = {name: c.value for name, (c, _) in launches.items()}
     for name, (_, want) in launches.items():
         check(counts[name] == want, f"{cfg.name} prefill: {name} launches {counts[name]} == {want}")
-    for name, counter in silent.items():
+    for name, counter in list(silent.items()) + [(k, c) for k, (c, _) in decode.items()]:
         check(counter.value == 0, f"{cfg.name} prefill: no {name} launch")
     check(ln == n and tuple(logits.shape) == (1, heads * cfg.padded_vocab)
           and bool(torch.isfinite(logits).all()), f"{cfg.name} prefill: finite (1, {heads} x "
@@ -775,10 +805,13 @@ def lm_prefill_decode(cfg, params, batch, prefill, decode_step, *, launches, sil
               f"{cfg.name} decode step {i}: finite logits")
     check(all(torch.equal(cache[k], kept[k]) for k in cache), "decode_step kept the prefill's cache")
     check(all(c.value == counts[name] for name, (c, _) in launches.items())
-          and all(c.value == 0 for c in silent.values()), "decode launched no attention kernel")
+          and all(c.value == 0 for c in silent.values()), "decode launched no prefill kernel")
+    for name, (c, want) in decode.items():
+        check(c.value == want, f"{cfg.name} decode: {name} launches {c.value} == {want}")
+        counts[name] = c.value
     print(f"{cfg.name}: prefill of {n} positions {prefill_s:.4f} s; {GEN_LEN} decode steps "
           f"{sum(step_s):.4f} s (mean {1e3 * sum(step_s) / GEN_LEN:.2f} ms, first "
-          f"{1e3 * step_s[0]:.2f} ms, last {1e3 * step_s[-1]:.2f} ms); launches in the prefill "
+          f"{1e3 * step_s[0]:.2f} ms, last {1e3 * step_s[-1]:.2f} ms); launches "
           + ", ".join(f"{k} {v}" for k, v in counts.items())
           + f"; max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     return counts
@@ -1874,7 +1907,7 @@ def dist_serve(mesh, counters):
     from repro_torch.configs import get_config
     from repro_torch.dist import make_ctx, param_shardings
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
-    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.models import decode_attention_calls, decode_step, init_params, prefill
     from repro_torch.models import moe as moe_mod
     from repro_torch.runtime.elastic import reshard_tree
 
@@ -1959,6 +1992,9 @@ def dist_serve(mesh, counters):
     check(launches["flash_attention_wgmma"] == 3 * cfg.num_layers
           and launches["flash_attention"] == 0,
           "every mesh prefill attention on the tensor-core kernel, inside local_map")
+    check(launches["decode_attention"] == 3 * DIST_DECODE * decode_attention_calls(cfg),
+          f"every mesh decode attention on the decode kernel, inside local_map "
+          f"({launches['decode_attention']} launches)")
     del params, dparams, got, want
     torch.cuda.empty_cache()
     return launches
@@ -1971,14 +2007,15 @@ def dist_child(ref_json: str) -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import torch.distributed as dist
 
-    from repro_torch.kernels import flash_attention, morph_recon, ssm_scan
+    from repro_torch.kernels import decode_attention, flash_attention, morph_recon, ssm_scan
     from repro_torch.launch.mesh import make_mesh_from_devices
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     counters = {"morph_recon": morph_recon.LAUNCHES, "ssm_scan": ssm_scan.LAUNCHES,
                 "flash_attention": flash_attention.LAUNCHES,
-                "flash_attention_wgmma": flash_attention.WGMMA_LAUNCHES}
+                "flash_attention_wgmma": flash_attention.WGMMA_LAUNCHES,
+                "decode_attention": decode_attention.LAUNCHES}
     t0 = time.perf_counter()
     mesh = make_mesh_from_devices((1, 1), ("data", "model"))
     print(f"process {os.getpid()} on {torch.cuda.get_device_name(0)}: world of "
@@ -2194,6 +2231,79 @@ def label_two_streams(mask: torch.Tensor, reps: int) -> None:
           f"equal, launches and steps exact")
 
 
+def decode_attention_row() -> dict:
+    """Phase 11's rows of the decode kernel (``kernels/decode_attention.py``)
+    at ``DECODE_SHAPES``: the kernel through ``models.attention
+    .decode_attention`` against its plain arithmetic on the card (one bf16
+    rounding), one launch a call from Python and one call counted on the
+    card, then a position held on the card, bit for bit as the host int;
+    the kernel's device time (a CUDA graph of the calls), its byte bound
+    (K and V read once over the valid positions), the plain route's time
+    and the library call's (``sdpa_decode``, a CUDA graph of the calls)."""
+    from repro_torch.kernels import decode_attention as dk
+    from repro_torch.models import attention as attention_mod
+
+    rows = {}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for name, (b, s, kv, rep, d, cur, window, scale) in DECODE_SHAPES.items():
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda").bfloat16()
+                   for shape in ((b, 1, kv * rep, d), (b, s, kv, d), (b, s, kv, d)))
+        call = functools.partial(attention_mod.decode_attention, q, k, v, cur, window=window,
+                                 scale=scale)
+        plain = functools.partial(attention_mod._decode_plain, q, k, v, cur, window=window,
+                                  scale=scale)
+        torch.cuda.synchronize()
+        launches, calls = dk.LAUNCHES.value, dk.CALLS.value
+        got = call()
+        torch.cuda.synchronize()
+        launches, calls = dk.LAUNCHES.value - launches, dk.CALLS.value - calls
+        want = plain()
+        omax = float(want.float().abs().max())
+        check(torch.allclose(got.float(), want.float(), rtol=2 ** -7, atol=2 ** -8 * omax),
+              f"decode_attention {name}: within one bf16 rounding of the plain arithmetic")
+        check(launches == 1 and calls == 1, f"decode_attention {name}: one launch, one call "
+              f"counted on the card ({launches}, {calls})")
+        on_card = attention_mod.decode_attention(q, k, v, torch.tensor(cur, device="cuda"),
+                                                 window=window, scale=scale)
+        check(torch.equal(on_card, got), f"decode_attention {name}: a position on the card "
+              "gives the host int's output")
+        err = float((got.float() - want.float()).abs().max())
+        lib = functools.partial(sdpa_decode, attention_mod, q, k, v, cur, window=window,
+                                scale=scale)
+        lib_err = float((lib().float() - want.float()).abs().max())
+        ms, plain_ms, lib_ms = graph_ms(call, 20), cuda_ms(plain, 3), graph_ms(lib, 20)
+        bound = dk.bound_bytes(b, min(cur, window), kv, d) / HBM_BYTES_PER_S * 1e3
+        rows[name] = {"ms": ms, "bound_ms": bound, "plain_ms": plain_ms, "library_ms": lib_ms,
+                      "launches": launches, "max_abs_err": err, "library_max_abs_diff": lib_err}
+        print(f"decode_attention {name} ({b},{s},{kv * rep} heads on {kv},{d}) cur {cur} window "
+              f"{window}: within one bf16 rounding of the plain arithmetic (max abs err {err}, "
+              f"max |out| {omax}), {launches} launch; kernel {ms:.4f} ms (device, a graph of 20), "
+              f"bound {bound:.4f} ms (bytes: K and V once), {bound / ms * 100:.1f}% of it; plain "
+              f"{plain_ms:.3f} ms; library call (scaled_dot_product_attention, masked, "
+              f"enable_gqa) {lib_ms:.4f} ms (device, a graph of 20; max abs diff {lib_err} from "
+              f"the plain arithmetic)", flush=True)
+        del q, k, v, got, want, on_card
+        torch.cuda.empty_cache()
+    return rows
+
+
+def sdpa_decode(attention_mod, q, k, v, cur, *, window, scale):
+    """The one PyTorch call that computes decode attention, as a route
+    without the kernel would make it: ``scaled_dot_product_attention`` on
+    the bf16 cache, masked to the valid span by a boolean mask made in the
+    call, the q heads grouped by ``enable_gqa``; q times the scale rounded
+    to bf16 as the plain route rounds it where ``scale`` is None, else the
+    scale handed to the call."""
+    kpos = torch.arange(k.shape[1], device=q.device)
+    mask = ((kpos < cur) & (kpos >= cur - window))[None, None, None, :]
+    if scale is None:
+        q, scale = (q * attention_mod._scale(q)).to(torch.bfloat16), 1.0
+    out = torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask, scale=scale,
+        enable_gqa=True)
+    return out.transpose(1, 2)
+
+
 def phase(name: str) -> None:
     print(f"\n== {name} [{time.perf_counter() - T0:.1f} s into the run]", flush=True)
 
@@ -2292,9 +2402,10 @@ def main() -> int:
     from repro_torch import configs
     from repro_torch.app import pipeline
     from repro_torch.core import halton_sequence, morris_trajectories, sa_serve
-    from repro_torch.kernels import flash_attention, label_prop, morph_recon, nvcc, ssm_scan
+    from repro_torch.kernels import decode_attention, flash_attention, label_prop, morph_recon
+    from repro_torch.kernels import nvcc, ssm_scan
     from repro_torch.kernels import ref as kref
-    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.models import decode_attention_calls, decode_step, init_params, prefill
     from repro_torch.models import attention as attention_mod, model as model_mod, moe as moe_mod
     from repro_torch.models import ssm as ssm_mod
     from repro_torch.models.layers import rms_norm
@@ -2314,12 +2425,13 @@ def main() -> int:
     print("tf32: matmul off, cudnn off")
     # one nvcc for each kernel source, started together
     t_build = time.perf_counter()
-    build_pool = concurrent.futures.ThreadPoolExecutor(max_workers=5)
+    build_pool = concurrent.futures.ThreadPoolExecutor(max_workers=6)
     builds = {"morph_recon": build_pool.submit(morph_recon.build),
               "label_prop": build_pool.submit(label_prop.build),
               "ssm_scan": build_pool.submit(ssm_scan.build),
               "flash_attention": build_pool.submit(flash_attention.build),
-              "flash_attention_wgmma": build_pool.submit(flash_attention.build_wgmma)}
+              "flash_attention_wgmma": build_pool.submit(flash_attention.build_wgmma),
+              "decode_attention": build_pool.submit(decode_attention.build)}
     build_pool.shutdown(wait=False)
 
     def show_build(name):
@@ -2577,7 +2689,8 @@ def main() -> int:
                       launches={"ssm_scan": (ssm_scan.LAUNCHES, cfg.num_layers * PROMPTS)},
                       silent={"morph_recon": morph_recon.LAUNCHES,
                               "flash_attention": flash_attention.LAUNCHES,
-                              "flash_attention_wgmma": flash_attention.WGMMA_LAUNCHES},
+                              "flash_attention_wgmma": flash_attention.WGMMA_LAUNCHES,
+                              "decode_attention": decode_attention.LAUNCHES},
                       sa_serve=sa_serve)
     launches["rwkv6_serve"] = out["launches"]["ssm_scan"]
     del params
@@ -2706,6 +2819,8 @@ def main() -> int:
           f"prefix 150, on the tensor cores: max abs err vs blocked (all bf16 cases) {fa_bf16_err}")
     d256 = gemma3_attention(flash_attention, kref)
     torch.cuda.empty_cache()
+    show_build("decode_attention")
+    decode_row = decode_attention_row()
 
     # the shared block's first application in the prefill of prompt 0
     zparams = init_params(zcfg, 0)
@@ -2767,11 +2882,15 @@ def main() -> int:
                                 "active_paths": 2, "peak_bytes": 1_015_649_408},
                       launches={"ssm_scan": (ssm_scan.LAUNCHES, zcfg.num_layers * PROMPTS),
                                 "flash_attention_wgmma": (flash_attention.WGMMA_LAUNCHES,
-                                                          zn_blocks * PROMPTS)},
+                                                          zn_blocks * PROMPTS),
+                                "decode_attention": (decode_attention.LAUNCHES,
+                                                     decode_attention_calls(zcfg)
+                                                     * SERVE_DECODE_STEPS)},
                       silent={"morph_recon": morph_recon.LAUNCHES,
                               "flash_attention": flash_attention.LAUNCHES}, sa_serve=sa_serve)
     launches["zamba2_serve"] = out["launches"]["ssm_scan"]
     fa_launches = out["launches"]["flash_attention_wgmma"]
+    decode_by_path = {"zamba2_serve": out["launches"]["decode_attention"]}
     del zparams
     torch.cuda.empty_cache()
 
@@ -2843,12 +2962,14 @@ def main() -> int:
         "gemma3_1b", configs, init_params, sa_serve, cache_bytes=109_477_888,
         peak_bytes=246_325_376,
         launches={"flash_attention_wgmma": (attn["flash_attention_wgmma"], 1)},
+        decode=decode_attention.LAUNCHES,
         silent={"flash_attention": attn["flash_attention"], **others})
     # the CUDA-core kernel takes fp32 and bf16 head dims that are no multiple
     # of 16: no model path gives it either, so its count stays 0 on each
     simt_by_path = {"gemma3_serve": attn["flash_attention"].value}
     wgmma_by_path = {"zamba2_serve": fa_launches,
                      "gemma3_serve": out["launches"]["flash_attention_wgmma"]}
+    decode_by_path["gemma3_serve"] = out["launches"]["decode_attention"]
     del gparams
     torch.cuda.empty_cache()
 
@@ -2859,8 +2980,10 @@ def main() -> int:
         "granite_moe_1b_a400m", configs, init_params, sa_serve, cache_bytes=202_113_024,
         peak_bytes=454_754_432,
         launches={"flash_attention_wgmma": (attn["flash_attention_wgmma"], 1)},
+        decode=decode_attention.LAUNCHES,
         silent={"flash_attention": attn["flash_attention"], **others})
     wgmma_by_path["granite_moe_serve"] = out["launches"]["flash_attention_wgmma"]
+    decode_by_path["granite_moe_serve"] = out["launches"]["decode_attention"]
     simt_by_path["granite_moe_serve"] = attn["flash_attention"].value
     moe_drops(mcfg, mparams, mprompts, prefill, moe_mod)
     wgmma_real = {"granite_moe_1b_a400m": real_layer0_attention(
@@ -2892,8 +3015,11 @@ def main() -> int:
         counts = lm_prefill_decode(
             cfg, params, batch, prefill, decode_step,
             launches={"flash_attention_wgmma": (attn["flash_attention_wgmma"], cfg.num_layers)},
+            decode={"decode_attention": (decode_attention.LAUNCHES,
+                                         decode_attention_calls(cfg) * GEN_LEN)},
             silent={"flash_attention": attn["flash_attention"], **others}, seed=1)
         wgmma_by_path[arch] = counts["flash_attention_wgmma"]
+        decode_by_path[arch] = counts["decode_attention"]
         simt_by_path[arch] = attn["flash_attention"].value
         wgmma_real[arch] = real_layer0_attention(flash_attention, kref, model_mod, attention_mod,
                                                  cfg, params, batch)
@@ -2953,6 +3079,7 @@ def main() -> int:
     launches["dist"] = dist_out["launches"]["ssm_scan"]
     simt_by_path["dist_serve"] = dist_out["launches"]["flash_attention"]
     wgmma_by_path["dist_serve"] = dist_out["launches"]["flash_attention_wgmma"]
+    decode_by_path["dist_serve"] = dist_out["launches"]["decode_attention"]
 
     # -- results -----------------------------------------------------------
     phase("end")
@@ -3040,6 +3167,19 @@ def main() -> int:
                       for model, cases in (("gemma3_1b", d256),
                                            ("paligemma_3b", {"prefix": d256_prefix}))
                       for case, nums in cases.items()},
+    }, {
+        "name": "decode_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "replaces": None,
+        "launches": sum(decode_by_path.values()),
+        "launches_by_path": decode_by_path,
+        "ms": decode_row["zamba2_7b"]["ms"],
+        "plain_ms": decode_row["zamba2_7b"]["plain_ms"],
+        "bound_ms": decode_row["zamba2_7b"]["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": decode_row["zamba2_7b"]["library_ms"],
+        "by_shape": decode_row,
     }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -21,8 +21,10 @@ Spans (:mod:`repro_torch.trace`, layer ``serve``): ``study`` (``runs``)
 around :func:`run_sa_serve`, ``serve.prefill`` (``tokens``, ``batch``),
 ``serve.generate`` (``steps``) and, inside it, ``serve.decode_step``
 (``mamba_layers``, ``shared_blocks``: the recurrent layers and attention
-blocks a step runs; ``cache_bytes_copied``: the cache a step copies). No
-span waits for the device.
+blocks a step runs; ``attention_kernel``: its decode-attention calls that
+take the decode kernel, on the card, derived from the model's call count
+and the cache's device, not counted; ``cache_bytes_copied``: the cache a
+step copies). No span waits for the device.
 """
 
 from __future__ import annotations
@@ -36,7 +38,8 @@ from repro_torch import trace
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.params import ParamSet
 from repro_torch.core.workflow import StageSpec, TaskSpec, Workflow
-from repro_torch.models import decode_step, init_cache, prefill
+from repro_torch.models import decode_attention_calls, decode_step, init_cache, prefill
+from repro_torch.models.attention import decode_on_card
 
 __all__ = ["build_serve_stage", "run_sa_serve"]
 
@@ -56,9 +59,11 @@ def _cache_bytes(cfg: ModelConfig, batch: int, max_len: int) -> int:
 
 def _step_counts(cfg: ModelConfig, cache) -> Dict[str, int]:
     """What one decode step runs and copies: its Mamba2 layers, its
-    attention blocks run between them, and the bytes of the cache it copies
-    (the cache it is given is not modified): the keys and values, and a
-    ``zamba2`` step its states and conv carries too."""
+    attention blocks run between them, how many of its decode-attention
+    calls take the decode kernel (the model's calls a step where the cache
+    is on the card, by the predicate that routes each call), and the bytes
+    of the cache it copies (the cache it is given is not modified): the
+    keys and values, and a ``zamba2`` step its states and conv carries too."""
     copied = ["k", "v"]
     if cfg.family == "zamba2":
         mamba, shared, copied = cfg.num_layers, len(cfg.hybrid_layer_ids), copied + ["mamba"]
@@ -66,8 +71,10 @@ def _step_counts(cfg: ModelConfig, cache) -> Dict[str, int]:
         mamba, shared = cfg.num_layers, cfg.num_layers // cfg.attn_every
     else:
         mamba, shared = 0, 0
-    return {"mamba_layers": mamba, "shared_blocks": shared, "cache_bytes_copied": sum(
-        t.numel() * t.element_size() for k in copied if k in cache for t in _leaves(cache[k]))}
+    kernel = decode_attention_calls(cfg) if "k" in cache and decode_on_card(cache["k"]) else 0
+    return {"mamba_layers": mamba, "shared_blocks": shared, "attention_kernel": kernel,
+            "cache_bytes_copied": sum(t.numel() * t.element_size() for k in copied if k in cache
+                                      for t in _leaves(cache[k]))}
 
 
 def build_serve_stage(

@@ -14,4 +14,7 @@ PyTorch versions (ref.py), their build (nvcc.py) and the device dispatch
   Zamba2's shared block: on the tensor cores for bf16
   (``csrc/flash_attention_wgmma.cu``, ``wgmma`` fed by TMA) and on the CUDA
   cores in IEEE fp32 otherwise (``csrc/flash_attention.cu``).
+* ``decode_attention`` — one query token against a KV cache, every serve
+  path's decode attention, CUDA C++ in ``csrc/decode_attention.cu`` (K and
+  V read once in bf16; split over the cache, three launches).
 """

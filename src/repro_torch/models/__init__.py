@@ -1,6 +1,7 @@
 """Model zoo: layer library + models built from a config: every family of the JAX package."""
 
 from repro_torch.models.model import (  # noqa: F401
+    decode_attention_calls,
     decode_step,
     forward_train,
     init_cache,

@@ -16,8 +16,13 @@ multiple of 16 would take the CUDA-core one. A CPU tensor runs the JAX
 package's own streaming softmax over key chunks, with its bf16 operands and
 fp32 sums, and so does training (``train=True``) on either device: the
 kernels compute no gradient, and the JAX package's ``forward_train``
-differentiates this arithmetic on every backend. Decode is plain PyTorch on
-either device, as the JAX package computes it.
+differentiates this arithmetic on every backend. Decode follows the
+tensors' device too (:func:`decode_on_card`): a CUDA cache goes to the
+hand-written decode kernel (:mod:`repro_torch.kernels.decode_attention`),
+which reads the bf16 K and V once, with the JAX package's roundings (q
+times the scale rounded to bf16 unless a scale is passed, the
+probabilities rounded to bf16 before P·V), and a CPU cache to plain
+PyTorch as the JAX package computes it.
 
 On a mesh (``ctx``, :mod:`repro_torch.dist`) both run on each rank's shard
 through ``local_map``: batch over the data-parallel axes and heads over
@@ -36,10 +41,11 @@ import torch.nn.functional as F
 
 from repro_torch.dist.sharding import mesh_axes, on_mesh, qkv_spec, shard_map_compat
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.decode_attention import decode_attention_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.models.layers import COMPUTE_DTYPE
 
-__all__ = ["blocked_attention", "decode_attention"]
+__all__ = ["blocked_attention", "decode_attention", "decode_on_card"]
 
 _NEG = -1e30
 
@@ -153,21 +159,41 @@ def blocked_attention(
     return out.transpose(1, 2).to(q.dtype)  # (B, Sq, H, D)
 
 
+def decode_on_card(cache: torch.Tensor) -> bool:
+    """Whether :func:`decode_attention` against ``cache`` takes the decode
+    kernel: exactly where the cache lies on a CUDA device. The serve spans
+    count a step's kernel calls by it (``core.sa_serve``)."""
+    return kops._on_card(cache, None)
+
+
 def decode_attention(
     q: torch.Tensor,  # (B, 1, H, D)
     k_cache: torch.Tensor,  # (B, S, KV, D)
     v_cache: torch.Tensor,
-    cur_len: int,  # number of valid cache positions
+    cur_len,  # number of valid cache positions: an int, or a 0-d long tensor
     *,
     window: int,  # full = S
     ctx=None,  # ParallelCtx (repro_torch.dist) or None
     scale: Optional[float] = None,  # as blocked_attention's
 ) -> torch.Tensor:
     """One-token attention against the full cache, masked to the valid
-    positions within the window; on a mesh, on each rank's shard."""
+    positions within the window; on the card the decode kernel, on the CPU
+    the JAX package's arithmetic; on a mesh, on each rank's shard."""
     if on_mesh(ctx):
         fn = functools.partial(decode_attention, cur_len=cur_len, window=window, scale=scale)
         return _on_shards(fn, ctx, q, k_cache, v_cache)
+    if decode_on_card(k_cache):
+        # the kernel scales q as _scaled_q32 does
+        return decode_attention_cuda(
+            q.contiguous(), k_cache, v_cache, cur_len, window=int(window),
+            q_scale=_scale(q) if scale is None else float(scale), round_q=scale is None)
+    return _decode_plain(q, k_cache, v_cache, cur_len, window=window, scale=scale)
+
+
+def _decode_plain(q, k_cache, v_cache, cur_len, *, window, scale=None) -> torch.Tensor:
+    """The JAX package's decode arithmetic in PyTorch: the CPU route of
+    :func:`decode_attention`, and the decode kernel's plain version on
+    either device."""
     b, _, h, d = q.shape
     s, kv = k_cache.shape[1], k_cache.shape[2]
     rep = h // kv

@@ -602,6 +602,17 @@ def _hybrid_decode(cfg: ModelConfig, params, x, cache, cur_len: int, ctx=None):
     return x, {"mamba": _stack(supers), "k": knew, "v": vnew}
 
 
+def decode_attention_calls(cfg: ModelConfig) -> int:
+    """The ``attention.decode_attention`` calls that one :func:`decode_step`
+    makes: a ``zamba2``'s uses of its shared blocks, a hybrid's one a
+    super-block, a transformer's one a layer, RWKV-6's none."""
+    if cfg.family == "zamba2":
+        return len(cfg.hybrid_layer_ids)
+    if cfg.family == "hybrid":
+        return cfg.num_layers // cfg.attn_every
+    return cfg.num_layers if cfg.family in _TRANSFORMERS else 0
+
+
 def decode_step(cfg: ModelConfig, params, batch, cache, cur_len: int, ctx=None):
     """One token for every sequence at position ``cur_len``. ``batch``:
     {"tokens": (B, 1)}, or {"frame_embeds": (B, 1, D)} for audio. Returns

@@ -271,7 +271,8 @@ def test_serve_study_returns_ids_and_confidences_with_its_spans(cfg, params, tok
     kv = 2 * len(cfg.hybrid_layer_ids) * 2 * 20 * cfg.num_heads * cfg.head_dim * 2
     states = 8 * 2 * (cfg.ssm_heads * cfg.ssm_state * cfg.ssm_head_dim * 4 + 3 * cfg.ssm_conv_dim * 2)
     assert [sp.attrs for sp in by["serve.decode_step"]] == [
-        {"mamba_layers": 8, "shared_blocks": 3, "cache_bytes_copied": kv + states}] * 12
+        {"mamba_layers": 8, "shared_blocks": 3, "attention_kernel": 0,
+         "cache_bytes_copied": kv + states}] * 12
     assert all(sp.layer == "serve" for name in by for sp in by[name] if name.startswith("serve"))
 
 

@@ -5,11 +5,13 @@ of 3648 positions) and ``--steps`` decode steps after it, each under
 wrapped in ``record_function`` ranges: the shared blocks' attention
 (``decode_attention`` / ``blocked_attention``), their q/k/v and MLP
 projections, and the Mamba2 layers (a decode step replays a CUDA graph,
-so the ranges show for prefill only). Prints, for prefill and for one
-decode step: the wall time without the profiler and under it, the
-device's busy share (the union of its operations' intervals over that
-time), each range's host time and its kernels' device time, and the ten
-kernels that took most device time.
+so the ranges show for prefill only). Prints, for prefill, for one
+decode step and for a later generate's first step (a new runner: two
+cache sets, an eager step, two graph captures; the process's one-time
+costs paid by the first): the wall time without the profiler and under
+it, the device's busy share (the union of its operations' intervals over
+that time), each range's host time and its kernels' device time, and the
+ten kernels that took most device time.
 
     python3 tools/profile_serve.py [--steps 4]    # needs a CUDA card
 """
@@ -119,6 +121,10 @@ def main() -> int:
     torch.cuda.synchronize()
     first = time.perf_counter() - t0
     t0 = time.perf_counter()
+    decode_step(cfg, params, {"tokens": nxt}, cache, n)  # a new runner, as a generate starts
+    torch.cuda.synchronize()
+    again = time.perf_counter() - t0
+    t0 = time.perf_counter()
     prefill(cfg, params, {"tokens": tokens}, MAX_LEN)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
@@ -126,8 +132,8 @@ def main() -> int:
         _, step_cache = decode_step(cfg, params, {"tokens": nxt}, step_cache, n + 1 + i)
     torch.cuda.synchronize()
     print(f"without the profiler: prefill {(t1 - t0) * 1e3:.1f} ms, first decode step (with "
-          f"the capture) {first * 1e3:.1f} ms, decode step "
-          f"{(time.perf_counter() - t1) / args.steps * 1e3:.1f} ms")
+          f"the capture) {first * 1e3:.1f} ms, a later generate's first step {again * 1e3:.1f} "
+          f"ms, decode step {(time.perf_counter() - t1) / args.steps * 1e3:.1f} ms")
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with ranges():
         with torch.profiler.profile(activities=acts) as prof:
@@ -144,6 +150,12 @@ def main() -> int:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         report(f"decode step (mean of {args.steps})", prof, wall, args.steps)
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        decode_step(cfg, params, {"tokens": nxt}, cache, n)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    report("a later generate's first step", prof, wall)
     return 0
 
 
