@@ -94,7 +94,7 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
     top-8: each 4096-token prefill takes the capacity-bounded MoE branch,
     whose dropped token slots are printed), attention on the tensor cores,
     held at layer 0's real q, k and v to its blocked plain version;
-22. ``prefill`` and 16 ``decode_step`` calls on paligemma_3b (256 seeded
+22. ``prefill`` and 16 steps of a ``models.decoder`` on paligemma_3b (256 seeded
     patch embeddings and 1024 tokens: prefix-LM attention on the
     tensor-core kernel, held at its shape first, fp32 on the CUDA-core
     kernel to ``attention_ref(prefix_len=256)`` and bf16 to
@@ -758,11 +758,11 @@ def prefix_attention(flash_attention, kref, pcfg, s):
                      f"{pcfg.num_patches},", shape, prefix_len=pcfg.num_patches)
 
 
-def lm_prefill_decode(cfg, params, batch, prefill, decode_step, *, launches, decode, silent,
-                      seed):
-    """Phase 22: one full-width prefill and GEN_LEN decode steps, each
-    timed between syncs. ``launches``: {kernel: (LaunchCount, launches the
-    prefill must make)}, counted from 0 just before it; ``decode``: {kernel:
+def lm_prefill_decode(cfg, params, batch, prefill, decoder, *, launches, decode, silent, seed):
+    """Phase 22: one full-width prefill and GEN_LEN decode steps through a
+    ``models.decoder``, each timed between syncs. ``launches``: {kernel:
+    (LaunchCount, launches the prefill must make)}, counted from 0 just
+    before it; ``decode``: {kernel:
     (LaunchCount, launches the decode steps must make)}, none in the
     prefill; ``silent``: counts that stay 0. Tokens are the greedy ones;
     audio's frame embeddings are seeded. Returns {kernel: launches}."""
@@ -790,7 +790,7 @@ def lm_prefill_decode(cfg, params, batch, prefill, decode_step, *, launches, dec
           f"{cfg.name} cache {kv_shape} bf16")
     kept = {k: v.clone() for k, v in cache.items()}
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    step_s, cur = [], cache
+    step_s, dec = [], decoder(cfg, params, cache)
     for i in range(GEN_LEN):
         if cfg.family == "audio":
             step = {"frame_embeds": torch.randn(1, 1, cfg.d_model, generator=gen, device="cuda")}
@@ -798,12 +798,12 @@ def lm_prefill_decode(cfg, params, batch, prefill, decode_step, *, launches, dec
             step = {"tokens": logits.argmax(-1)[:, None]}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits, cur = decode_step(cfg, params, step, cur, n + i)
+        logits = dec.step(step, n + i)
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
         check(bool(torch.isfinite(logits).all()) and logits.shape[-1] == heads * cfg.padded_vocab,
               f"{cfg.name} decode step {i}: finite logits")
-    check(all(torch.equal(cache[k], kept[k]) for k in cache), "decode_step kept the prefill's cache")
+    check(all(torch.equal(cache[k], kept[k]) for k in cache), "the decoder kept the prefill's cache")
     check(all(c.value == counts[name] for name, (c, _) in launches.items())
           and all(c.value == 0 for c in silent.values()), "decode launched no prefill kernel")
     for name, (c, want) in decode.items():
@@ -2405,7 +2405,7 @@ def main() -> int:
     from repro_torch.kernels import decode_attention, flash_attention, label_prop, morph_recon
     from repro_torch.kernels import nvcc, ssm_scan
     from repro_torch.kernels import ref as kref
-    from repro_torch.models import decode_attention_calls, decode_step, init_params, prefill
+    from repro_torch.models import decode_attention_calls, init_params, prefill
     from repro_torch.models import attention as attention_mod, model as model_mod, moe as moe_mod
     from repro_torch.models import ssm as ssm_mod
     from repro_torch.models.layers import rms_norm
@@ -3013,7 +3013,7 @@ def main() -> int:
               f"the card in {time.perf_counter() - t0:.3f} s")
         batch = lm_batch(cfg, s_text, seed=0, device="cuda")
         counts = lm_prefill_decode(
-            cfg, params, batch, prefill, decode_step,
+            cfg, params, batch, prefill, models.decoder,
             launches={"flash_attention_wgmma": (attn["flash_attention_wgmma"], cfg.num_layers)},
             decode={"decode_attention": (decode_attention.LAUNCHES,
                                          decode_attention_calls(cfg) * GEN_LEN)},

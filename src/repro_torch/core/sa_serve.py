@@ -20,11 +20,8 @@ Everything runs on the parameters' device; prompts (numpy) move there.
 Spans (:mod:`repro_torch.trace`, layer ``serve``): ``study`` (``runs``)
 around :func:`run_sa_serve`, ``serve.prefill`` (``tokens``, ``batch``),
 ``serve.generate`` (``steps``) and, inside it, ``serve.decode_step``
-(``mamba_layers``, ``shared_blocks``: the recurrent layers and attention
-blocks a step runs; ``attention_kernel``: its decode-attention calls that
-take the decode kernel, on the card, derived from the model's call count
-and the cache's device, not counted; ``cache_bytes_copied``: the cache a
-step copies). No span waits for the device.
+around each step of the generate's decoder (:func:`repro_torch.models.decoder`).
+No span waits for the device.
 """
 
 from __future__ import annotations
@@ -38,8 +35,7 @@ from repro_torch import trace
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.params import ParamSet
 from repro_torch.core.workflow import StageSpec, TaskSpec, Workflow
-from repro_torch.models import decode_attention_calls, decode_step, init_cache, prefill
-from repro_torch.models.attention import decode_on_card
+from repro_torch.models import decoder, init_cache, prefill
 
 __all__ = ["build_serve_stage", "run_sa_serve"]
 
@@ -55,26 +51,6 @@ def _cache_bytes(cfg: ModelConfig, batch: int, max_len: int) -> int:
     (no memory)."""
     cache = init_cache(cfg, batch, max_len, device="meta")
     return sum(t.numel() * t.element_size() for t in _leaves(cache))
-
-
-def _step_counts(cfg: ModelConfig, cache) -> Dict[str, int]:
-    """What one decode step runs and copies: its Mamba2 layers, its
-    attention blocks run between them, how many of its decode-attention
-    calls take the decode kernel (the model's calls a step where the cache
-    is on the card, by the predicate that routes each call), and the bytes
-    of the cache it copies (the cache it is given is not modified): the
-    keys and values, and a ``zamba2`` step its states and conv carries too."""
-    copied = ["k", "v"]
-    if cfg.family == "zamba2":
-        mamba, shared, copied = cfg.num_layers, len(cfg.hybrid_layer_ids), copied + ["mamba"]
-    elif cfg.family == "hybrid":
-        mamba, shared = cfg.num_layers, cfg.num_layers // cfg.attn_every
-    else:
-        mamba, shared = 0, 0
-    kernel = decode_attention_calls(cfg) if "k" in cache and decode_on_card(cache["k"]) else 0
-    return {"mamba_layers": mamba, "shared_blocks": shared, "attention_kernel": kernel,
-            "cache_bytes_copied": sum(t.numel() * t.element_size() for k in copied if k in cache
-                                      for t in _leaves(cache[k]))}
 
 
 def build_serve_stage(
@@ -96,8 +72,7 @@ def build_serve_stage(
         return {"cache": cache, "len": ln, "last_logits": logits, "tokens": toks}
 
     def t_generate(state, rep_penalty, top_k):
-        cache, ln = state["cache"], state["len"]
-        logits = state["last_logits"]
+        ln, logits = state["len"], state["last_logits"]
         b = logits.shape[0]
         rows = torch.arange(b, device=dev)
         ones = torch.ones(b, dtype=torch.float32, device=dev)
@@ -105,8 +80,8 @@ def build_serve_stage(
         out_ids: List[torch.Tensor] = []
         confidences: List[torch.Tensor] = []
         seen = torch.zeros((b, cfg.padded_vocab), dtype=torch.float32, device=dev)
-        counts = _step_counts(cfg, cache)
         with trace.span("serve.generate", "serve", steps=gen_len):
+            dec = decoder(cfg, params, state["cache"])
             for i in range(gen_len):
                 adj = logits - log_penalty * seen
                 # the first maximal index, as lax.top_k(adj, top_k)[1][:, 0]
@@ -116,9 +91,8 @@ def build_serve_stage(
                 confidences.append(probs.gather(1, nxt[:, None])[:, 0])
                 seen = seen.index_put((rows, nxt), ones, accumulate=True)
                 out_ids.append(nxt)
-                with trace.span("serve.decode_step", "serve", **counts):
-                    logits, cache = decode_step(cfg, params, {"tokens": nxt[:, None]}, cache,
-                                                ln + i)
+                with trace.span("serve.decode_step", "serve"):
+                    logits = dec.step({"tokens": nxt[:, None]}, ln + i)
         return {"ids": torch.stack(out_ids, 1), "conf": torch.stack(confidences, 1)}
 
     def t_score(state, threshold):

@@ -35,8 +35,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
 
     from repro_torch.configs import get_config, reduced_config
     from repro_torch.device import resolve_device
-    from repro_torch.launch.steps import make_decode_step, make_prefill_step
-    from repro_torch.models import init_params
+    from repro_torch.launch.steps import cast_for_compute, make_prefill_step
+    from repro_torch.models import decoder, init_params
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
@@ -67,13 +67,14 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     max_len = args.prompt_len + args.gen
     toks = rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len)).astype(np.int32)
     prefill_fn = make_prefill_step(cfg, None, max_len=max_len)
-    decode_fn = make_decode_step(cfg, None)
     t0 = time.time()
     with torch.no_grad():
         nxt, cache = prefill_fn(params, {"tokens": torch.from_numpy(toks).to(device)})
+        dec = decoder(cfg, cast_for_compute(params), cache)
         outs = [nxt]
         for i in range(args.gen - 1):
-            nxt, cache = decode_fn(params, cache, {"tokens": nxt}, args.prompt_len + i)
+            logits = dec.step({"tokens": nxt}, args.prompt_len + i)
+            nxt = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
             outs.append(nxt)
     gen = torch.cat(outs, dim=1).cpu()
     dt = time.time() - t0

@@ -3,6 +3,7 @@
 from repro_torch.models.model import (  # noqa: F401
     decode_attention_calls,
     decode_step,
+    decoder,
     forward_train,
     init_cache,
     init_params,

@@ -161,8 +161,8 @@ def blocked_attention(
 
 def decode_on_card(cache: torch.Tensor) -> bool:
     """Whether :func:`decode_attention` against ``cache`` takes the decode
-    kernel: exactly where the cache lies on a CUDA device. The serve spans
-    count a step's kernel calls by it (``core.sa_serve``)."""
+    kernel: exactly where the cache lies on a CUDA device. The calls that
+    take it are counted on the card (``kernels.decode_attention.CALLS``)."""
     return kops._on_card(cache, None)
 
 

@@ -72,7 +72,7 @@ from repro_torch.models.layers import (COMPUTE_DTYPE, apply_rope, cross_entropy,
 from repro_torch.models.moe import moe_ffn
 
 __all__ = ["init_params", "params_from_jax", "forward_train", "init_cache", "prefill",
-           "decode_step"]
+           "decode_step", "decoder"]
 
 # held in bf16 (see the module docstring), by leaf name: RWKV-6's, then
 # Zamba2's and the transformers' (no name of one family names an fp32 leaf
@@ -631,6 +631,30 @@ def decode_step(cfg: ModelConfig, params, batch, cache, cur_len: int, ctx=None):
         else:
             x, cache = _rwkv_decode(cfg, params, x, cache)
         return _logits(cfg, params, x[:, 0]), cache
+
+
+class _Chained:
+    """A generate's steps through :func:`decode_step`, which copies the
+    cache it is given: the latest cache, each step's taken in its place."""
+
+    def __init__(self, cfg: ModelConfig, params, cache) -> None:
+        self.cfg, self.params, self.cache = cfg, params, cache
+
+    def step(self, batch, cur_len: int) -> torch.Tensor:
+        logits, self.cache = decode_step(self.cfg, self.params, batch, self.cache, cur_len)
+        return logits
+
+
+def decoder(cfg: ModelConfig, params, cache):
+    """The decode steps of one generate from ``cache``, which is not
+    modified (a prompt's cache is shared by every generate under it): an
+    object whose ``step(batch, cur_len)`` takes ``batch`` as :func:`decode_step`
+    does and returns its logits. It owns the buffers its steps write (a
+    ``zamba2``'s, :class:`zamba2.Decoder`: two cache sets, a CUDA graph each on the card)."""
+    _check_family(cfg)
+    if cfg.family == "zamba2":
+        return zamba2.Decoder(cfg, params, cache)
+    return _Chained(cfg, params, cache)
 
 
 def _rwkv_prefill(cfg: ModelConfig, params, x, ctx=None):

@@ -21,8 +21,8 @@ Then the final RMSNorm and the LM head, tied to the embedding.
 
 Prefill runs the ``ssm_scan`` kernel in each layer and the tensor-core
 ``flash_attention`` kernel at each use on the card; decode updates each
-Mamba2 state in O(1) and attends against each use's own KV cache, a step
-replayed as a CUDA graph on the card (:class:`_Runner`). Norms
+Mamba2 state in O(1) and attends against each use's own KV cache, a
+generate's steps replayed as CUDA graphs on the card (:class:`Decoder`). Norms
 scale by ``1 + weight``, as everywhere in the port. Matrices are held in
 bf16, norms, biases, decays and skips in fp32.
 """
@@ -40,7 +40,7 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import blocked_attention, decode_attention
 from repro_torch.models.layers import COMPUTE_DTYPE, matmul, normal_init
 
-__all__ = ["init_params", "init_cache", "prefill", "decode_step"]
+__all__ = ["init_params", "init_cache", "prefill", "decode_step", "Decoder"]
 
 # init scales of the random weights: logits of std about 3 through the
 # tied head; the final norm's scale drawn around 0 (N(0, 1)), or the tied
@@ -260,21 +260,23 @@ def _copy_cache(dst, src) -> None:
         dst["mamba"][name].copy_(src["mamba"][name])
 
 
-class _Runner:
-    """Decode steps of one generate: two sets of cache buffers taken in
-    turn, and on the card a CUDA graph of :func:`_step` on each: a step is
-    about 4,400 device operations, which issued one by one from Python took
-    134 ms against the card's 86 (NVIDIA H100). A step copies its input
-    cache into the set it did not come from, then runs the step there in
-    place. The capture is thread-local, so that other workers' threads may
-    launch meanwhile."""
+class Decoder:
+    """The decode steps of one generate from a prompt's ``cache``, which is
+    not modified: two sets of cache buffers taken in turn, and on the card a
+    CUDA graph of :func:`_step` on each, captured when the decoder is made:
+    a step is about 4,400 device operations, which issued one by one from
+    Python took 134 ms against the card's 86 (NVIDIA H100). A step copies
+    its input (the prompt's cache, then the set written last) into the
+    other set and runs there in place. The capture is thread-local, so that
+    other workers' threads may launch meanwhile."""
 
-    def __init__(self, cfg: Zamba2Config, params, like) -> None:
-        dev = like["k"].device
-        self.sets = [init_cache(cfg, like["k"].shape[1], like["k"].shape[2], dev) for _ in (0, 1)]
-        self.tokens = torch.zeros((like["k"].shape[1], 1), dtype=torch.long, device=dev)
+    def __init__(self, cfg: Zamba2Config, params, cache) -> None:
+        dev = cache["k"].device
+        self.sets = [init_cache(cfg, cache["k"].shape[1], cache["k"].shape[2], dev) for _ in (0, 1)]
+        self.tokens = torch.zeros((cache["k"].shape[1], 1), dtype=torch.long, device=dev)
         self.pos = torch.zeros((), dtype=torch.long, device=dev)
-        self.cfg, self.params = cfg, params
+        self.cfg, self.params, self.cache = cfg, params, cache
+        self.last: Optional[int] = None  # the set written last
         self.graphs: list = [None, None]
         self.logits: list = [None, None]
         if dev.type == "cuda":
@@ -293,27 +295,25 @@ class _Runner:
                 self.logits[i] = _step(self.cfg, self.params, self.tokens, self.pos, buffers)
             self.graphs[i], pool = graph, graph.pool()
 
-    def step(self, tokens: torch.Tensor, cache, cur_len: int):
-        i = 1 if cache["k"] is self.sets[0]["k"] else 0
-        out = self.sets[i]
-        _copy_cache(out, cache)
-        self.tokens.copy_(tokens)
-        self.pos.fill_(cur_len)
+    def step(self, batch, cur_len: int) -> torch.Tensor:
+        """Logits fp32 (B, V) of the token ``batch["tokens"]`` (B, 1) at ``cur_len``."""
+        i = self.last = 1 if self.last == 0 else 0
+        _copy_cache(self.sets[i], self.cache)
+        self.cache = self.sets[i]  # the next step's input
+        self.tokens.copy_(batch["tokens"])
+        self.pos.fill_(int(cur_len))
         if self.graphs[i] is None:
-            logits = _step(self.cfg, self.params, self.tokens, self.pos, out)
-        else:
-            self.graphs[i].replay()
-            logits = self.logits[i].clone()  # 1 MB: the caller may keep it
-        return logits, {**out, "runner": self}
+            return _step(self.cfg, self.params, self.tokens, self.pos, self.sets[i])
+        self.graphs[i].replay()
+        return self.logits[i].clone()  # 1 MB: the caller may keep it
 
 
 def decode_step(cfg: Zamba2Config, params, tokens: torch.Tensor, cache, cur_len: int):
-    """One token (B, 1) at position ``cur_len``; returns (logits fp32 (B,
-    V), new cache). ``cache`` is not modified: a prompt's cache is shared by
-    every generate task under it, so the keys, values and states are copied
-    before the token's are written. A generate's steps take two sets of
-    buffers in turn (``_Runner``, made at its first step and carried in the
-    caches it returns): a step's returned cache is overwritten by the step
-    after the next, so a caller keeps only the latest."""
-    runner = cache.get("runner") or _Runner(cfg, params, cache)
-    return runner.step(tokens, cache, int(cur_len))
+    """One token (B, 1) at position ``cur_len``, run eagerly; returns
+    (logits fp32 (B, V), new cache): a fresh set shaped by
+    :func:`init_cache`, ``cache`` copied into it and the step run there.
+    ``cache`` is not modified."""
+    out = init_cache(cfg, cache["k"].shape[1], cache["k"].shape[2], cache["k"].device)
+    _copy_cache(out, cache)
+    pos = torch.tensor(int(cur_len), dtype=torch.long, device=out["k"].device)
+    return _step(cfg, params, tokens, pos, out), out

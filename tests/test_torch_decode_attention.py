@@ -2,8 +2,8 @@
 ``csrc/decode_attention.cu``).
 
 On the CPU: the route takes the plain arithmetic for CPU tensors and hands
-CUDA ones to the kernel with the scale as the plain route applies it; the
-serve spans count no kernel call there; the plain arithmetic equals the JAX
+CUDA ones to the kernel with the scale as the plain route applies it; a
+decode step makes the calls the model counts; the plain arithmetic equals the JAX
 package's ``decode_attention``; the wrapper refuses what the kernel does not
 take; the split plan covers the span.
 
@@ -28,7 +28,6 @@ import torch
 
 from repro_torch import configs as tconfigs
 from repro_torch.configs import zamba2_7b
-from repro_torch.core import sa_serve as tserve
 from repro_torch.kernels import decode_attention as dk
 from repro_torch.models import (attention as tattn, decode_attention_calls, decode_step,
                                 init_cache, init_params)
@@ -92,23 +91,10 @@ def _published_7b():
     return zamba2_7b.from_hf(json.loads(path.read_text()))
 
 
-@pytest.mark.parametrize("arch,calls", [("zamba2_7b", 13), ("zamba2_2p7b", 9),
-                                        ("gemma3_1b", 26), ("rwkv6_1p6b", 0)])
-def test_step_counts_read_the_kernel_calls_by_the_route(monkeypatch, arch, calls):
-    """``attention_kernel`` is 0 off the card (here the meta device) and
-    every decode-attention call of a step where the route says the card."""
-    cfg = _published_7b() if arch == "zamba2_7b" else tconfigs.get_config(arch)
-    assert decode_attention_calls(cfg) == calls
-    cache = init_cache(cfg, 8, 3648, device="meta")
-    assert tserve._step_counts(cfg, cache)["attention_kernel"] == 0
-    monkeypatch.setattr(tserve, "decode_on_card", lambda c: True)
-    assert tserve._step_counts(cfg, cache)["attention_kernel"] == calls
-
-
 @pytest.mark.parametrize("arch", tconfigs.ARCH_IDS + tconfigs.PORT_ARCH_IDS)
 def test_decode_attention_calls_counts_a_step(monkeypatch, arch):
-    """The count the serve spans read is the calls a decode step makes: one
-    step of each family's reduced model on the CPU, its calls counted."""
+    """The model's count is the calls a decode step makes: one step of each
+    family's reduced model on the CPU, its calls counted."""
     from repro_torch.models import model as tmodel, zamba2 as tzamba2
 
     cfg = tconfigs.reduced_config(tconfigs.get_config(arch))

@@ -30,7 +30,7 @@ from repro_torch import configs as tconfigs
 from repro_torch import trace
 from repro_torch.configs import zamba2_7b
 from repro_torch.core import sa_serve as tserve
-from repro_torch.models import decode_step, init_cache, init_params, prefill
+from repro_torch.models import decoder, init_cache, init_params, prefill
 from repro_torch.models import attention as tattn, ssm as tssm, zamba2 as tz
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent))
@@ -161,25 +161,26 @@ def test_prefill_logits_match_the_reference(cfg, params, tokens, want):
 
 
 def test_decode_through_the_cache_matches_the_full_forward(cfg, params, tokens):
-    """Prefill the prompt, then decode the next STEPS - 1 tokens through the
-    cache, teacher-forced: each step's logits against the reference's full
+    """Prefill the prompt, then decode the next STEPS - 1 tokens through a
+    decoder, teacher-forced: each step's logits against the reference's full
     forward over the prompt and the tokens so far."""
     logits, cache, n = prefill(cfg, params, {"tokens": tokens[:, :PROMPT]}, max_len=PROMPT + STEPS)
     before = {k: v.clone() for k, v in cache.items() if k != "mamba"}
-    got, caches = [logits], []
+    dec = decoder(cfg, params, cache)
+    got, written = [logits], []
     for i in range(STEPS - 1):
-        logits, cache = decode_step(cfg, params, {"tokens": tokens[:, n + i:n + i + 1]}, cache,
-                                    n + i)
-        got.append(logits.clone())
-        caches.append(cache)
+        got.append(dec.step({"tokens": tokens[:, n + i:n + i + 1]}, n + i))
+        written.append(dec.last)
     for b in range(tokens.shape[0]):
         want = ref.logits(SMALL, params, tokens[b, :PROMPT + STEPS - 1], STEPS)
         assert _rel(torch.stack([g[b].clone() for g in got]), want) < REL_TOL, b
     # the first step wrote into a copy: the prompt's cache is shared; the
-    # steps take two sets of buffers in turn
+    # steps take the decoder's two sets of buffers in turn
     first = prefill(cfg, params, {"tokens": tokens[:, :PROMPT]}, max_len=PROMPT + STEPS)[1]
     assert all(torch.equal(first[k], before[k]) for k in before)
-    assert caches[0]["k"] is caches[2]["k"] and caches[1]["k"] is not caches[0]["k"]
+    assert isinstance(dec, tz.Decoder) and written == [0, 1, 0]
+    assert len(dec.sets) == 2 and dec.sets[0]["k"] is not dec.sets[1]["k"]
+    assert all(s["k"] is not cache["k"] for s in dec.sets)
 
 
 def test_the_float8_control_fails_the_tolerance(params, tokens, want):
@@ -268,11 +269,7 @@ def test_serve_study_returns_ids_and_confidences_with_its_spans(cfg, params, tok
     assert [sp.attrs for sp in by["study"]] == [{"runs": 8}]
     assert [sp.attrs for sp in by["serve.prefill"]] == [{"tokens": 32, "batch": 2}] * 2
     assert [sp.attrs for sp in by["serve.generate"]] == [{"steps": 3}] * 4
-    kv = 2 * len(cfg.hybrid_layer_ids) * 2 * 20 * cfg.num_heads * cfg.head_dim * 2
-    states = 8 * 2 * (cfg.ssm_heads * cfg.ssm_state * cfg.ssm_head_dim * 4 + 3 * cfg.ssm_conv_dim * 2)
-    assert [sp.attrs for sp in by["serve.decode_step"]] == [
-        {"mamba_layers": 8, "shared_blocks": 3, "attention_kernel": 0,
-         "cache_bytes_copied": kv + states}] * 12
+    assert [sp.attrs for sp in by["serve.decode_step"]] == [{}] * 12
     assert all(sp.layer == "serve" for name in by for sp in by[name] if name.startswith("serve"))
 
 
@@ -344,9 +341,9 @@ def test_card_prefill_and_decode_at_published_widths(card):
     """Eight layers at the published widths (three uses of the two blocks,
     112 Mamba2 heads in two groups, attention at head dim 224) on the card:
     prefill runs the scan kernel in every layer and the tensor-core
-    attention at every use, and prefill and decode through the cache are
-    within the tolerance of the float32 reference; the float8 control is
-    not."""
+    attention at every use, and prefill and decode through a decoder (its
+    steps replayed as CUDA graphs) are within the tolerance of the float32
+    reference; the float8 control is not."""
     from repro_torch.kernels import flash_attention as tfa, ssm_scan as tss
 
     pub = dict(zamba2_7b.PUBLISHED, num_hidden_layers=8, hybrid_layer_ids=[1, 4, 6])
@@ -357,10 +354,8 @@ def test_card_prefill_and_decode_at_published_widths(card):
     fa0, ss0 = tfa.WGMMA_LAUNCHES.value, tss.LAUNCHES.value
     logits, cache, n = prefill(cfg, params, {"tokens": toks[:, :512]}, max_len=516)
     assert (tfa.WGMMA_LAUNCHES.value - fa0, tss.LAUNCHES.value - ss0) == (3, 8)
-    got = [logits]
-    for i in range(3):
-        logits, cache = decode_step(cfg, params, {"tokens": toks[:, n + i:n + i + 1]}, cache, n + i)
-        got.append(logits)
+    dec = decoder(cfg, params, cache)
+    got = [logits] + [dec.step({"tokens": toks[:, n + i:n + i + 1]}, n + i) for i in range(3)]
     for b in range(2):
         want = ref.logits(pub, params, toks[b, :515], 4)
         assert _rel(torch.stack([g[b] for g in got]), want) < REL_TOL, b

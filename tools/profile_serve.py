@@ -6,9 +6,9 @@ wrapped in ``record_function`` ranges: the shared blocks' attention
 (``decode_attention`` / ``blocked_attention``), their q/k/v and MLP
 projections, and the Mamba2 layers (a decode step replays a CUDA graph,
 so the ranges show for prefill only). Prints, for prefill, for one
-decode step and for a later generate's first step (a new runner: two
-cache sets, an eager step, two graph captures; the process's one-time
-costs paid by the first): the wall time without the profiler and under
+decode step and for a later generate's first step (a new decoder: two
+cache sets, a warm-up step, two graph captures, then its first step; the
+process's one-time costs paid by the first): the wall time without the profiler and under
 it, the device's busy share (the union of its operations' intervals over
 that time), each range's host time and its kernels' device time, and the
 ten kernels that took most device time.
@@ -32,7 +32,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.configs import zamba2_7b  # noqa: E402
-from repro_torch.models import decode_step, init_params, prefill, ssm, zamba2  # noqa: E402
+from repro_torch.models import decoder, init_params, prefill, ssm, zamba2  # noqa: E402
 
 BATCH, PROMPT, MAX_LEN = 8, 3584, 3648
 # (module, attribute, range name)
@@ -117,11 +117,12 @@ def main() -> int:
     logits, cache, n = prefill(cfg, params, {"tokens": tokens}, MAX_LEN)  # warm
     nxt = logits.argmax(-1)[:, None]
     t0 = time.perf_counter()
-    _, step_cache = decode_step(cfg, params, {"tokens": nxt}, cache, n)  # captures the graphs
+    dec = decoder(cfg, params, cache)  # captures the graphs
+    dec.step({"tokens": nxt}, n)
     torch.cuda.synchronize()
     first = time.perf_counter() - t0
     t0 = time.perf_counter()
-    decode_step(cfg, params, {"tokens": nxt}, cache, n)  # a new runner, as a generate starts
+    decoder(cfg, params, cache).step({"tokens": nxt}, n)  # a new decoder, as a generate starts
     torch.cuda.synchronize()
     again = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -129,7 +130,7 @@ def main() -> int:
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     for i in range(args.steps):
-        _, step_cache = decode_step(cfg, params, {"tokens": nxt}, step_cache, n + 1 + i)
+        dec.step({"tokens": nxt}, n + 1 + i)
     torch.cuda.synchronize()
     print(f"without the profiler: prefill {(t1 - t0) * 1e3:.1f} ms, first decode step (with "
           f"the capture) {first * 1e3:.1f} ms, a later generate's first step {again * 1e3:.1f} "
@@ -145,14 +146,13 @@ def main() -> int:
         with torch.profiler.profile(activities=acts) as prof:
             t0 = time.perf_counter()
             for i in range(args.steps):
-                logits, step_cache = decode_step(cfg, params, {"tokens": nxt}, step_cache,
-                                                 n + 1 + args.steps + i)
+                dec.step({"tokens": nxt}, n + 1 + args.steps + i)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         report(f"decode step (mean of {args.steps})", prof, wall, args.steps)
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        decode_step(cfg, params, {"tokens": nxt}, cache, n)
+        decoder(cfg, params, cache).step({"tokens": nxt}, n)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     report("a later generate's first step", prof, wall)
