@@ -9,8 +9,8 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
 
 1. device: the card's name and power limit, TF32 off; the kernels start
    building (one ``nvcc`` each, in parallel);
-2. build: the ``morph_recon`` and ``label_prop`` CUDA kernels from the
-   checkout's source;
+2. build: the ``morph_recon``, ``label_prop`` and ``component_sizes`` CUDA
+   kernels from the checkout's source;
 3. kernel vs its plain PyTorch version on the card, ``torch.equal``, on
    random cases and on the real Seg2 and fill-holes inputs of the 4096²
    tile; each 4096² case also against the plain version of the kernel's
@@ -20,7 +20,11 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    (``label_prop``) at the tile's Seg4 ``area_pre`` labelling and Seg5
    flood, conn 8, against the Python loops on the card, with its steps
    (counted on the card, equal to the loops' host syncs), time, byte
-   bound, and the loops' time and device operations;
+   bound, and the loops' time and device operations; then the
+   component-sizes kernel (``component_sizes``) on the tile's ``area_pre``
+   labels in both modes (sizes, and Seg4's filter) against its plain
+   version on the card (``torch.bincount``), with its time, byte bound,
+   launches and the plain version's time;
 4. the single-tile SA study, ``repro_torch.app.run_study``, on a 4096²
    tile with the 16-run MOAT design over Table I, counting kernel launches,
    ``morph_recon``'s rounds and tile visits and ``label_prop``'s steps;
@@ -2123,7 +2127,8 @@ def label_inputs(pipeline, tile: np.ndarray) -> dict:
 @contextlib.contextmanager
 def plain_label_loops():
     """The label loops of ``app.ops`` on their Python versions (one host
-    sync a step) whatever the tensors' device."""
+    sync a step), and its component sizes on ``torch.bincount``, whatever
+    the tensors' device."""
     from repro_torch.kernels import ops as kops
 
     on_card = kops._on_card
@@ -2204,6 +2209,69 @@ def label_prop_row(pipeline, tile: np.ndarray) -> dict:
               f"{plain_ops} device operations", flush=True)
     print("library call: none (no one PyTorch call labels connected components or floods "
           "from seeds)")
+    return rows
+
+
+def component_sizes_bound_ms(numel: int, out_bytes: int) -> float:
+    """Least time of one call of the component-sizes kernel: the labels
+    read twice (4 bytes a pixel each), the int32 counts zeroed (4) and the
+    output written (``out_bytes`` a pixel: 1 for the filter's mask, 4 for
+    the sizes), over the memory rate (``csrc/component_sizes.cu``)."""
+    return (12 + out_bytes) * numel / HBM_BYTES_PER_S * 1e3
+
+
+def component_sizes_row(pipeline, tile: np.ndarray) -> dict:
+    """Phase 3's row of the component-sizes kernel at the main path's
+    shape: the labels of the 4096² ``area_pre`` mask (conn 8), in both
+    modes, sizes and the filter with Seg4's default bounds. The kernel
+    against its plain version on the card (``torch.bincount``, today's
+    route off the kernel; ``torch.equal``), one launch a call, 3 repeats
+    equal; the kernel's device ms (a CUDA graph of the calls) and the ms a
+    call takes issued from the host, its byte bound, and the plain
+    version's ms."""
+    from repro_torch.kernels import component_sizes as sizes_kernel, label_prop
+
+    ops = pipeline.ops
+    default = dict(pipeline.TABLE1_SPACE.default())
+    lo, hi = int(default["minS"]), int(default["maxS"])
+    mask = label_inputs(pipeline, tile)["area_pre"]
+    labels = label_prop.label_components_cuda(mask, conn=8)
+
+    def plain_filter():
+        sizes = ops.component_sizes(labels)
+        return mask & (sizes >= lo) & (sizes <= hi)
+
+    calls = {
+        "sizes": (lambda: sizes_kernel.component_sizes_cuda(labels),
+                  lambda: ops.component_sizes(labels), 4),
+        "filter": (lambda: sizes_kernel.size_filter_cuda(labels, lo, hi), plain_filter, 1),
+    }
+    rows = {}
+    for name, (kernel, plain, out_bytes) in calls.items():
+        torch.cuda.synchronize()
+        launches = sizes_kernel.LAUNCHES.value
+        got = kernel()
+        torch.cuda.synchronize()
+        launches = sizes_kernel.LAUNCHES.value - launches
+        with plain_label_loops():
+            want = plain()
+            plain_ms = cuda_ms(plain, 3)
+        check(torch.equal(got, want), f"component_sizes {name} == the plain version "
+              f"({int((got != want).sum())} pixels differ)")
+        check(launches == 1, f"component_sizes {name}: one launch ({launches})")
+        for rep in range(3):
+            check(torch.equal(kernel(), want), f"component_sizes {name}: repeat {rep} equal")
+        ms = graph_ms(kernel, 20)
+        issued_ms = cuda_ms(kernel, 20)
+        bound = component_sizes_bound_ms(labels.numel(), out_bytes)
+        rows[name] = {"ms": ms, "issued_ms": issued_ms, "bound_ms": bound,
+                      "plain_ms": plain_ms, "launches": launches}
+        print(f"component_sizes {name} {tuple(labels.shape)} (area_pre labels, conn 8, "
+              f"{int(mask.sum())} pixels labelled): equal to the plain version, {launches} launch; "
+              f"3 repeats equal; kernel {ms:.4f} ms device ({issued_ms:.4f} ms a call issued "
+              f"from the host), bound {bound:.4f} ms (bytes: {12 + out_bytes} a pixel), "
+              f"{ms / bound:.2f}x bound; plain (torch.bincount) {plain_ms:.3f} ms", flush=True)
+    print("library call: none (torch.bincount is the plain version's, the yardstick only)")
     return rows
 
 
@@ -2403,7 +2471,7 @@ def main() -> int:
     from repro_torch.app import pipeline
     from repro_torch.core import halton_sequence, morris_trajectories, sa_serve
     from repro_torch.kernels import decode_attention, flash_attention, label_prop, morph_recon
-    from repro_torch.kernels import nvcc, ssm_scan
+    from repro_torch.kernels import component_sizes as sizes_kernel, nvcc, ssm_scan
     from repro_torch.kernels import ref as kref
     from repro_torch.models import decode_attention_calls, init_params, prefill
     from repro_torch.models import attention as attention_mod, model as model_mod, moe as moe_mod
@@ -2425,9 +2493,10 @@ def main() -> int:
     print("tf32: matmul off, cudnn off")
     # one nvcc for each kernel source, started together
     t_build = time.perf_counter()
-    build_pool = concurrent.futures.ThreadPoolExecutor(max_workers=6)
+    build_pool = concurrent.futures.ThreadPoolExecutor(max_workers=7)
     builds = {"morph_recon": build_pool.submit(morph_recon.build),
               "label_prop": build_pool.submit(label_prop.build),
+              "component_sizes": build_pool.submit(sizes_kernel.build),
               "ssm_scan": build_pool.submit(ssm_scan.build),
               "flash_attention": build_pool.submit(flash_attention.build),
               "flash_attention_wgmma": build_pool.submit(flash_attention.build_wgmma),
@@ -2447,6 +2516,7 @@ def main() -> int:
     phase("2 build")
     show_build("morph_recon")
     show_build("label_prop")
+    show_build("component_sizes")
 
     # -- 3. kernel vs plain version --------------------------------------
     phase("3 kernel vs plain version (torch.equal, atol=0)")
@@ -2508,6 +2578,7 @@ def main() -> int:
     print("library call: none (no one PyTorch call computes reconstruction by dilation; "
           "max_pool2d is one dilation step)")
     label_row = label_prop_row(pipeline, tile)
+    sizes_row = component_sizes_row(pipeline, tile)
     del cases
     torch.cuda.empty_cache()
 
@@ -2541,7 +2612,7 @@ def main() -> int:
 
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
-    for c in counters + (label_prop.LAUNCHES, label_prop.STEPS):
+    for c in counters + (label_prop.LAUNCHES, label_prop.STEPS, sizes_kernel.LAUNCHES):
         c.reset()
     t0 = time.perf_counter()
     out = pipeline.run_study(tile, sets, strategy="rmsr")
@@ -2549,6 +2620,7 @@ def main() -> int:
     wall = time.perf_counter() - t0
     study_launches, study_rounds, study_visits = (c.value for c in counters)
     label_launches, label_steps = label_prop.LAUNCHES.value, label_prop.STEPS.value
+    sizes_launches = sizes_kernel.LAUNCHES.value
     check(out["tasks_total"] == 8 * len(sets) == 128, f"tasks_total {out['tasks_total']} == 128")
     check(out["planned_tasks_executed"] == 71,
           f"planned tasks_executed {out['planned_tasks_executed']} == 71")
@@ -2561,6 +2633,8 @@ def main() -> int:
           f"{study_visits} tile visits")
     check(label_launches > 0, "the study launched label_prop")
     print(f"label_prop in the study: {label_launches} launches, {label_steps} steps")
+    check(sizes_launches > 0, "the study launched component_sizes")
+    print(f"component_sizes in the study: {sizes_launches} launches")
     print(f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     print("dice " + " ".join(f"{d:.6f}" for d in out["dice"]))
     print("per-task seconds (tasks of the study and its reference run; each timed between syncs):")
@@ -3113,6 +3187,18 @@ def main() -> int:
         "bound_by": "bytes",
         "library_ms": None,
         "by_input": label_row,
+    }, {
+        "name": "component_sizes",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/component_sizes.cu",
+        "replaces": None,
+        "launches": sizes_launches,
+        "ms": sizes_row["filter"]["ms"],
+        "plain_ms": sizes_row["filter"]["plain_ms"],
+        "bound_ms": sizes_row["filter"]["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "by_mode": sizes_row,
     }, {
         "name": "ssm_scan",
         "route": "cuda",

@@ -14,15 +14,21 @@ the card in one launch of the :mod:`repro_torch.kernels.label_prop` kernel,
 which makes no host sync; on the CPU in the Python loops below, their plain
 versions, with one host sync per step. Each loop is a ``label_loop`` span
 whose ``steps`` counts those syncs and whose ``launches`` counts the
-kernel's launches.
+kernel's launches. Component sizes, and the size test of the area filters
+and of the watershed's ``pre`` mask, are one call of the
+:mod:`repro_torch.kernels.component_sizes` kernel on the card and
+``torch.bincount``, their plain version, on the CPU; each is a
+``component_sizes`` span whose ``launches`` counts the kernel's calls.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch import trace
-from repro_torch.kernels import label_prop, ops as kops
+from repro_torch.kernels import component_sizes as sizes_kernel, label_prop, ops as kops
 from repro_torch.kernels.ref import dilate, erode, neighbors as _neighbors, shift2d as _shift
 
 __all__ = [
@@ -127,20 +133,42 @@ def label_components(mask: torch.Tensor, conn: int = 8) -> torch.Tensor:
 
 def component_sizes(labels: torch.Tensor) -> torch.Tensor:
     """Per-pixel int32 size of the component the pixel belongs to (0 for bg)."""
-    h, w = labels.shape
-    flat = labels.reshape(-1)
-    bins = torch.where(flat >= 0, flat, h * w).to(torch.int64)
-    counts = torch.bincount(bins, minlength=h * w + 1)
-    counts[h * w] = 0
-    return counts[bins].reshape(h, w).to(torch.int32)
+    with trace.span("component_sizes", "pathology tasks") as sp:
+        if kops._on_card(labels, None):
+            sizes = sizes_kernel.component_sizes_cuda(labels.contiguous())
+            sp.count(launches=1)
+            return sizes
+        sp.count(launches=0)
+        h, w = labels.shape
+        flat = labels.reshape(-1)
+        bins = torch.where(flat >= 0, flat, h * w).to(torch.int64)
+        counts = torch.bincount(bins, minlength=h * w + 1)
+        counts[h * w] = 0
+        return counts[bins].reshape(h, w).to(torch.int32)
+
+
+def _size_filter(
+    mask: torch.Tensor, labels: torch.Tensor, lo: int, hi: Optional[int] = None
+) -> torch.Tensor:
+    """``mask & (sizes >= lo) & (sizes <= hi)`` for ``labels``, the labels of
+    ``mask`` (``hi`` None: no upper bound). On the card one call of the
+    kernel, which reads ``labels >= 0`` for ``mask``: ``label_components``
+    gives -1 exactly off it."""
+    if kops._on_card(labels, None):
+        with trace.span("component_sizes", "pathology tasks") as sp:
+            keep = sizes_kernel.size_filter_cuda(labels.contiguous(), lo, hi)
+            sp.count(launches=1)
+        return keep
+    sizes = component_sizes(labels)
+    keep = mask & (sizes >= lo)
+    return keep if hi is None else keep & (sizes <= hi)
 
 
 def area_filter(
     mask: torch.Tensor, min_size: int, max_size: int, conn: int = 8
 ) -> torch.Tensor:
     """Drop components outside [min_size, max_size] (MinSize/MaxSize params)."""
-    sizes = component_sizes(label_components(mask, conn=conn))
-    return mask & (sizes >= min_size) & (sizes <= max_size)
+    return _size_filter(mask, label_components(mask, conn=conn), min_size, max_size)
 
 
 def distance_transform(
@@ -167,7 +195,7 @@ def watershed_split(
     wavefront propagation); pixels where two different seeds collide form the
     split lines, which are removed from the mask. Components smaller than
     ``min_size_pl`` are dropped *before* splitting (paper's MinSizePl)."""
-    pre = mask & (component_sizes(label_components(mask, conn=conn)) >= min_size_pl)
+    pre = _size_filter(mask, label_components(mask, conn=conn), min_size_pl)
     dist = distance_transform(pre, conn=4)
     maxima = (dist >= dilate(dist, conn=conn)) & pre & (dist > 1.0)
     h, w = mask.shape

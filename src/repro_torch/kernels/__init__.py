@@ -7,6 +7,10 @@ PyTorch versions (ref.py), their build (nvcc.py) and the device dispatch
 * ``label_prop`` — the pathology path's label loops (connected components
   and the watershed's seeded flood) run to their fixpoint on the card,
   CUDA C++ in ``csrc/label_prop.cu`` (one cooperative launch a loop).
+* ``component_sizes`` — each pixel's component size, and the area filters'
+  size test, from the label loops' labels, CUDA C++ in
+  ``csrc/component_sizes.cu`` (a warp merges equal labels before its
+  atomic; a count pass and a look-up pass).
 * ``ssm_scan`` — the chunked diagonal-gated linear recurrence of RWKV-6 and
   Mamba2, CUDA C++ in ``csrc/ssm_scan.cu`` (parallel over chunks, three
   passes).

@@ -16,7 +16,7 @@ import torch
 
 from repro_torch import trace
 from repro_torch.app import ops
-from repro_torch.kernels import label_prop, ops as kops
+from repro_torch.kernels import component_sizes, label_prop, ops as kops
 
 
 @pytest.fixture(scope="module")
@@ -226,6 +226,12 @@ def test_the_span_counts_a_launch_and_no_sync_on_the_kernel_path(monkeypatch):
     monkeypatch.setattr(label_prop, "label_components_cuda",
                         fake("component", lambda m, conn: ops.label_components(m, conn=conn)))
     monkeypatch.setattr(label_prop, "flood_cuda", fake("flood", ops._flood))
+
+    def size_filter(labels, lo, hi=None):  # the watershed's pre mask, on its plain version
+        with _Plain():
+            return (labels >= 0) & (ops.component_sizes(labels) >= lo)
+
+    monkeypatch.setattr(component_sizes, "size_filter_cuda", size_filter)
     monkeypatch.setattr(kops, "_on_card", lambda t, use_kernel=None: True)
     with trace.recording():
         with trace.span("task", "test") as task:

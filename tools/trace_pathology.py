@@ -16,7 +16,11 @@
   same item's loops once more with each launch waited for and its steps
   read (a lock around each launch, so that the two workers' steps stay
   apart), and once with the Python loops (one host sync a step), whose
-  syncs the kernel's steps equal.
+  syncs the kernel's steps equal;
+- the component-sizes kernel (``kernels/component_sizes``): its launches
+  and its two kernels' device seconds over the profiled item, and its
+  calls by task from the ``component_sizes`` spans, beside the label
+  kernel's.
 
     python3 tools/trace_pathology.py --workload path4k.moat --pairs 5   # needs a CUDA card
 
@@ -43,7 +47,7 @@ sys.path[:0] = [str(ROOT), str(ROOT / "src")]
 from chip_smoke import plain_label_loops  # noqa: E402
 from perfbench import harness  # noqa: E402
 from repro_torch import trace  # noqa: E402
-from repro_torch.kernels import label_prop  # noqa: E402
+from repro_torch.kernels import component_sizes as sizes_kernel, label_prop  # noqa: E402
 
 
 def idle_by_span(device, spans, lo, hi):
@@ -112,19 +116,19 @@ def span_cost_us(n=100_000):
     return off, on
 
 
-def label_loops_by_task(spans, extra=None):
-    """Loops, host syncs (``steps``) and kernel launches of the
-    ``label_loop`` spans by their task span's name, with ``extra``
-    ({label_loop span id: {name: count}}) added to each loop's task."""
+def counts_by_task(spans, name="label_loop", extra=None):
+    """The spans called ``name`` (``calls``) and their counts summed (a
+    ``label_loop``'s host syncs, ``steps``, and kernel ``launches``; a
+    ``component_sizes``' ``launches``) by their task span's name, with
+    ``extra`` ({span id: {name: count}}) added to each span's task."""
     by_id = {sp.id: sp for sp in spans}
     out: dict = collections.defaultdict(collections.Counter)
     for sp in spans:
-        if sp.name != "label_loop":
+        if sp.name != name:
             continue
         task = out[by_id[sp.parent].name if sp.parent in by_id else "?"]
-        task["loops"] += 1
-        task["steps"] += sp.attrs.get("steps", 0)
-        task["launches"] += sp.attrs.get("launches", 0)
+        task["calls"] += 1
+        task.update(sp.attrs)
         task.update((extra or {}).get(sp.id, {}))
     return {k: dict(v) for k, v in sorted(out.items())}
 
@@ -158,7 +162,7 @@ def kernel_steps_by_task(driver, item, sync):
     finally:
         for name, fn in wrapped.items():
             setattr(label_prop, name, fn)
-    return label_loops_by_task(trace.records(), steps)
+    return counts_by_task(trace.records(), extra=steps)
 
 
 def python_loops_by_task(driver, item, sync):
@@ -167,7 +171,7 @@ def python_loops_by_task(driver, item, sync):
     with plain_label_loops(), trace.recording():
         driver.run_item(item)
         sync()
-    return label_loops_by_task(trace.records())
+    return counts_by_task(trace.records())
 
 
 def measure(root, workload, pairs, seed, device):
@@ -193,6 +197,7 @@ def measure(root, workload, pairs, seed, device):
     activity = ProfilerActivity.CUDA if device.type == "cuda" else ProfilerActivity.CPU
     sync()
     launches0, steps0 = label_prop.LAUNCHES.value, label_prop.STEPS.value
+    sizes0 = sizes_kernel.LAUNCHES.value
     with profile(activities=[activity]) as prof:
         with trace.recording():
             lo = time.time_ns()
@@ -202,6 +207,9 @@ def measure(root, workload, pairs, seed, device):
     kernel = {"launches": label_prop.LAUNCHES.value - launches0,
               "steps": label_prop.STEPS.value - steps0}
     device_ops = harness._device_events(prof) if device.type == "cuda" else []
+    sizes = {"launches": sizes_kernel.LAUNCHES.value - sizes0,
+             "device_s": {k: sum(e - s for name, s, e in device_ops if k in name) / 1e9
+                          for k in ("count_kernel", "lookup_kernel")}}
     spans = trace.records()
     cost_off_us, cost_on_us = span_cost_us()
     runs_per_key = collections.defaultdict(list)
@@ -210,7 +218,7 @@ def measure(root, workload, pairs, seed, device):
             runs_per_key[(sp.parent, sp.attrs.get("key"))].append(sp)
     loops = [sp for sp in spans if sp.name == "label_loop"]
     by_id = {sp.id: sp for sp in spans}
-    by_task = label_loops_by_task(spans)
+    by_task = counts_by_task(spans)
     busy = sum(e - s for s, e in harness.union(harness.clip(
         [(s, e) for _, s, e in device_ops], lo, hi)))
     return {
@@ -224,6 +232,8 @@ def measure(root, workload, pairs, seed, device):
         "idle_s_by_innermost_span": idle_by_span(device_ops, spans, lo, hi),
         "label_loops_by_task": by_task,
         "label_kernel": kernel,
+        "component_sizes_kernel": sizes,
+        "component_sizes_by_task": counts_by_task(spans, "component_sizes"),
         "label_kernel_steps_by_task": kernel_steps_by_task(driver, pairs, sync),
         "python_label_loops_by_task": python_loops_by_task(driver, pairs, sync),
         "syncs_per_run": sum(sp.attrs.get("steps", 0) for sp in loops) / runs,
