@@ -2,6 +2,7 @@
 
 from repro_torch.configs.base import (  # noqa: F401
     ARCH_IDS,
+    GraniteHybridConfig,
     PORT_ARCH_IDS,
     SHAPES,
     ModelConfig,

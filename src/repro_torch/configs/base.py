@@ -15,6 +15,7 @@ from typing import Dict, Optional, Tuple
 __all__ = [
     "ModelConfig",
     "Zamba2Config",
+    "GraniteHybridConfig",
     "ShapeConfig",
     "SHAPES",
     "ARCH_IDS",
@@ -188,6 +189,51 @@ class Zamba2Config(ModelConfig):
 
 
 @dataclasses.dataclass(frozen=True)
+class GraniteHybridConfig(ModelConfig):
+    """IBM's Granite 4.0-H layout (family ``granite_hybrid``,
+    ``models/granite_hybrid.py``): each layer of ``layer_types`` mixes by
+    Mamba2 (``ssm_ngroups`` groups of B and C, a depthwise conv with bias,
+    a gated RMSNorm over each group) or by grouped-query attention with no
+    positional encoding (logits scaled by ``attention_multiplier``), then
+    runs a mixture of ``num_experts`` SwiGLU experts of width ``d_ff``, the
+    top ``experts_per_token`` of each token weighted by the softmax of their
+    router logits, beside a shared SwiGLU expert of width ``shared_d_ff``.
+    Each branch enters the hidden stream times ``residual_multiplier``; the
+    embedding is scaled by ``embedding_multiplier`` and tied to the LM head,
+    whose logits are divided by ``logits_scaling``."""
+
+    layer_types: Tuple[str, ...] = ()  # "mamba" | "attention", one a layer
+    shared_d_ff: int = 0
+    ssm_ngroups: int = 1
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    logits_scaling: float = 1.0
+    attention_multiplier: float = 1.0
+
+    @property
+    def ssm_conv_dim(self) -> int:
+        """Channels of the depthwise conv: x, then B and C of every group."""
+        return self.ssm_expand * self.d_model + 2 * self.ssm_ngroups * self.ssm_state
+
+    def layer_kinds(self) -> Tuple[str, ...]:
+        return tuple("attn" if t == "attention" else "mamba" for t in self.layer_types)
+
+    def param_count(self) -> int:
+        """Every leaf: the tied embedding, the final norm, each layer's two
+        norms, its mixer (Mamba2: projections, conv taps and bias, dt bias,
+        A, D, the gated norm; attention: q, k, v, o) and its MoE (router,
+        experts, shared expert)."""
+        d, d_in = self.d_model, self.ssm_expand * self.d_model
+        h, conv = self.ssm_heads, self.ssm_conv_dim
+        mamba = d * (d_in + conv + h) + 4 * conv + conv + 3 * h + d_in + d_in * d
+        attn = 2 * d * self.num_heads * self.head_dim + 2 * d * self.num_kv_heads * self.head_dim
+        moe = d * self.num_experts + self.num_experts * 3 * d * self.d_ff + 3 * d * self.shared_d_ff
+        kinds = self.layer_kinds()
+        return int(self.padded_vocab * d + d + self.num_layers * (2 * d + moe)
+                   + kinds.count("mamba") * mamba + kinds.count("attn") * attn)
+
+
+@dataclasses.dataclass(frozen=True)
 class ShapeConfig:
     name: str
     seq_len: int
@@ -220,6 +266,7 @@ ARCH_IDS = [
 # ARCH_IDS stays equal to its list
 PORT_ARCH_IDS = [
     "zamba2_7b",
+    "granite_4_0_h_small",
 ]
 
 
@@ -245,7 +292,14 @@ def reduced_config(cfg: ModelConfig) -> ModelConfig:
     """A smoke-test-sized config of the same family: small widths/depths,
     few experts, tiny vocab — runs a real step on one CPU device. A Zamba2
     keeps two shared blocks alternating over three uses, its adapters, two
-    SSM groups and the concatenated embedding."""
+    SSM groups and the concatenated embedding; a Granite 4.0-H one period of
+    its layer pattern (ten layers, one of them attention), 8 experts, top 3
+    and its shared expert."""
+    if isinstance(cfg, GraniteHybridConfig):
+        return dataclasses.replace(
+            cfg, num_layers=10, layer_types=cfg.layer_types[:10], d_model=64, num_heads=4,
+            num_kv_heads=2, head_dim=16, d_ff=32, shared_d_ff=64, vocab_size=256, ssm_state=16,
+            ssm_head_dim=16, num_experts=8, experts_per_token=3)
     if isinstance(cfg, Zamba2Config):
         return dataclasses.replace(
             cfg, num_layers=8, d_model=64, num_heads=4, num_kv_heads=4, head_dim=32, d_ff=128,

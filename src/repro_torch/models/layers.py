@@ -22,12 +22,14 @@ COMPUTE_DTYPE = torch.bfloat16
 __all__ = [
     "COMPUTE_DTYPE",
     "rms_norm",
+    "rms_norm_fused",
     "rope_frequencies",
     "apply_rope",
     "matmul",
     "swiglu",
     "dense_ffn",
     "normal_init",
+    "normal_stack",
     "token_nll",
     "cross_entropy",
 ]
@@ -38,6 +40,12 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.T
     x32 = x.float()
     var = x32.square().mean(-1, keepdim=True)
     return (x32 * torch.rsqrt(var + eps) * (1.0 + scale.float())).to(dt)
+
+
+def rms_norm_fused(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    """RMSNorm in fp32 scaled by 1 + ``w``, in x's dtype: :func:`rms_norm`
+    in PyTorch's one fused operation (decoding is bound by launches)."""
+    return F.rms_norm(x.float(), (x.shape[-1],), 1.0 + w, eps).to(x.dtype)
 
 
 def rope_frequencies(head_dim: int, theta: float) -> np.ndarray:
@@ -146,6 +154,18 @@ def normal_init(
     std = std if std is not None else 1.0 / math.sqrt(fan_in)
     w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device or gen.device)
     return w.mul_(std).to(dtype)
+
+
+def normal_stack(gen: Optional[torch.Generator], lead: int, shape, std: Optional[float],
+                 dtype: torch.dtype, device) -> torch.Tensor:
+    """``lead`` stacked :func:`normal_init` draws of ``shape``, each drawn in
+    fp32 and stored as ``dtype`` one at a time (the stack is never held in
+    fp32); left empty where ``gen`` is None (the meta device)."""
+    out = torch.empty((lead, *shape), dtype=dtype, device=device)
+    if gen is not None:
+        for i in range(lead):
+            out[i] = normal_init(gen, tuple(shape), std, dtype=dtype, device=device)
+    return out
 
 
 def token_nll(logits: torch.Tensor, labels: torch.Tensor, *,

@@ -17,7 +17,11 @@ for every family of the JAX package's ``repro.models.model``:
   * ``zamba2`` (Zyphra's Zamba2-7B, a family of the port alone): Mamba2
     with grouped B and C, and two alternating shared blocks over the
     concatenated embedding with per-use adapters, in
-    :mod:`repro_torch.models.zamba2`; served only, on one device.
+    :mod:`repro_torch.models.zamba2`; served only, on one device;
+  * ``granite_hybrid`` (IBM's Granite 4.0-H, a family of the port alone):
+    Mamba2 and NoPE GQA layers, each followed by dropless top-k experts
+    beside a shared expert, in :mod:`repro_torch.models.granite_hybrid`;
+    served only, on one device.
 An unknown family raises ``ValueError``, as in the JAX package.
 
 Training takes the plain versions of the kernels on either device (the
@@ -64,15 +68,15 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.dist.sharding import (P, as_dtensor, batch_spec, constrain_hidden, constrain_qkv,
                                        on_mesh, placements, replicate_plain, shard_map_compat)
+from repro_torch.models import decoding, granite_hybrid, zamba2
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models import zamba2
 from repro_torch.models.attention import blocked_attention, decode_attention
 from repro_torch.models.layers import (COMPUTE_DTYPE, apply_rope, cross_entropy, dense_ffn,
                                       matmul, normal_init, rms_norm, token_nll)
 from repro_torch.models.moe import moe_ffn
 
 __all__ = ["init_params", "params_from_jax", "forward_train", "init_cache", "prefill",
-           "decode_step", "decoder"]
+           "decode_step", "decoder", "decode_attention_calls", "decode_moe_calls"]
 
 # held in bf16 (see the module docstring), by leaf name: RWKV-6's, then
 # Zamba2's and the transformers' (no name of one family names an fp32 leaf
@@ -84,7 +88,10 @@ BF16_WEIGHTS = frozenset({
 })
 
 _TRANSFORMERS = ("dense", "moe", "vlm", "audio")
-_FAMILIES = _TRANSFORMERS + ("hybrid", "ssm", "zamba2")
+# the port's own families: served on one device, their decode step run in
+# place on a cache (models.decoding)
+_OWN = {"zamba2": zamba2, "granite_hybrid": granite_hybrid}
+_FAMILIES = _TRANSFORMERS + ("hybrid", "ssm") + tuple(_OWN)
 
 
 def _check_family(cfg: ModelConfig) -> None:
@@ -92,9 +99,11 @@ def _check_family(cfg: ModelConfig) -> None:
         raise ValueError(cfg.family)
 
 
-def _zamba2_off_mesh(ctx) -> None:
+def _own_off_mesh(cfg: ModelConfig, ctx):
+    """The family's module, refusing a mesh."""
     if on_mesh(ctx):
-        raise NotImplementedError("the zamba2 family runs on one device")
+        raise NotImplementedError(f"the {cfg.family} family runs on one device")
+    return _OWN[cfg.family]
 
 
 def _analysis(ctx) -> bool:
@@ -229,8 +238,8 @@ def init_params(
         gen = torch.Generator(device=dev).manual_seed(int(seed_or_generator))
     d, vp = cfg.d_model, cfg.padded_vocab
     wdt = torch.float32 if masters else COMPUTE_DTYPE
-    if cfg.family == "zamba2":
-        return zamba2.init_params(cfg, gen, dev, wdt)
+    if cfg.family in _OWN:
+        return _OWN[cfg.family].init_params(cfg, gen, dev, wdt)
     params: Dict[str, Any] = {"final_norm": torch.zeros(d, dtype=torch.float32, device=dev)}
     if cfg.family == "audio":  # no token embedding: one head per codebook
         params["lm_head"] = normal_init(gen, (d, cfg.num_codebooks * vp), 0.02,
@@ -455,8 +464,8 @@ def forward_train(cfg: ModelConfig, params, batch, ctx=None) -> torch.Tensor:
     around the backward pass, after this returns
     (``launch.steps.make_train_step`` does)."""
     _check_family(cfg)
-    if cfg.family == "zamba2":
-        raise NotImplementedError("the zamba2 family is served only: no training forward")
+    if cfg.family in _OWN:
+        raise NotImplementedError(f"the {cfg.family} family is served only: no training forward")
     with replicate_plain(ctx):
         x, prefix_len = _embed_inputs(cfg, params, batch, ctx)
         b, s, _ = x.shape
@@ -518,12 +527,14 @@ def init_cache(
     conv carry under ``"mamba"`` (super-block, layer, ...), and the shared
     attention's keys and values at each of its applications (super-block,
     B, max_len, KV, hd); a ``zamba2`` cache likewise, with a KV cache for
-    each use of its shared blocks (:func:`repro_torch.models.zamba2.init_cache`).
+    each use of its shared blocks (:func:`repro_torch.models.zamba2.init_cache`),
+    and a ``granite_hybrid`` one with a KV cache for each attention layer
+    (:func:`repro_torch.models.granite_hybrid.init_cache`).
     ``device="meta"`` sizes it without memory."""
     _check_family(cfg)
     dev = resolve_device(device)
-    if cfg.family == "zamba2":
-        return zamba2.init_cache(cfg, batch, max_len, dev)
+    if cfg.family in _OWN:
+        return _OWN[cfg.family].init_cache(cfg, batch, max_len, dev)
     if cfg.family in _TRANSFORMERS:
         kv_shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
         return {
@@ -604,13 +615,23 @@ def _hybrid_decode(cfg: ModelConfig, params, x, cache, cur_len: int, ctx=None):
 
 def decode_attention_calls(cfg: ModelConfig) -> int:
     """The ``attention.decode_attention`` calls that one :func:`decode_step`
-    makes: a ``zamba2``'s uses of its shared blocks, a hybrid's one a
-    super-block, a transformer's one a layer, RWKV-6's none."""
+    makes: a ``zamba2``'s uses of its shared blocks, a ``granite_hybrid``'s
+    attention layers, a hybrid's one a super-block, a transformer's one a
+    layer, RWKV-6's none."""
     if cfg.family == "zamba2":
         return len(cfg.hybrid_layer_ids)
+    if cfg.family == "granite_hybrid":
+        return cfg.layer_kinds().count("attn")
     if cfg.family == "hybrid":
         return cfg.num_layers // cfg.attn_every
     return cfg.num_layers if cfg.family in _TRANSFORMERS else 0
+
+
+def decode_moe_calls(cfg: ModelConfig) -> int:
+    """The MoE calls that one :func:`decode_step` makes (a captured step
+    records no span): one a layer of a ``granite_hybrid`` or a ``moe``
+    transformer, none elsewhere."""
+    return cfg.num_layers if cfg.family in ("granite_hybrid", "moe") else 0
 
 
 def decode_step(cfg: ModelConfig, params, batch, cache, cur_len: int, ctx=None):
@@ -619,9 +640,10 @@ def decode_step(cfg: ModelConfig, params, batch, cache, cur_len: int, ctx=None):
     (logits fp32 (B, V), audio's (B, codebooks * V), new cache); ``cache``
     is not modified."""
     _check_family(cfg)
-    if cfg.family == "zamba2":
-        _zamba2_off_mesh(ctx)
-        return zamba2.decode_step(cfg, params, batch["tokens"], cache, int(cur_len))
+    if cfg.family in _OWN:
+        mod = _own_off_mesh(cfg, ctx)
+        return decoding.decode_step(cfg, params, batch["tokens"], cache, int(cur_len),
+                                    mod.init_cache, mod._step)
     with replicate_plain(ctx):
         x = _embed_step(cfg, params, batch, ctx)
         if cfg.family in _TRANSFORMERS:
@@ -650,10 +672,12 @@ def decoder(cfg: ModelConfig, params, cache):
     modified (a prompt's cache is shared by every generate under it): an
     object whose ``step(batch, cur_len)`` takes ``batch`` as :func:`decode_step`
     does and returns its logits. It owns the buffers its steps write (a
-    ``zamba2``'s, :class:`zamba2.Decoder`: two cache sets, a CUDA graph each on the card)."""
+    ``zamba2``'s and a ``granite_hybrid``'s, :class:`decoding.Decoder`: two
+    cache sets, a CUDA graph each on the card)."""
     _check_family(cfg)
-    if cfg.family == "zamba2":
-        return zamba2.Decoder(cfg, params, cache)
+    if cfg.family in _OWN:
+        mod = _OWN[cfg.family]
+        return decoding.Decoder(cfg, params, cache, mod.init_cache, mod._step)
     return _Chained(cfg, params, cache)
 
 
@@ -746,9 +770,8 @@ def prefill(cfg: ModelConfig, params, batch, max_len: int, ctx=None):
     S)}; vlm also {"patch_embeds": (B, num_patches, D)}, put before the
     tokens; audio {"frame_embeds": (B, S, D)} only."""
     _check_family(cfg)
-    if cfg.family == "zamba2":
-        _zamba2_off_mesh(ctx)
-        return zamba2.prefill(cfg, params, batch["tokens"], max_len)
+    if cfg.family in _OWN:
+        return _own_off_mesh(cfg, ctx).prefill(cfg, params, batch["tokens"], max_len)
     with replicate_plain(ctx):
         x, prefix_len = _embed_inputs(cfg, params, batch, ctx)
         x = constrain_hidden(x, cfg, ctx)

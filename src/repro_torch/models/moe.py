@@ -19,6 +19,13 @@ enter at their at-rest FSDP layout and are all-gathered inside in bf16
 over 'data' then 'model' (the gathers' backward is a bf16 reduce-scatter);
 in the serving (TP) layout the experts' FFN dims are split over 'model' and
 the partial outputs are summed over it (``tp_axis``).
+
+Beside it, for the port's own IBM Granite 4.0-H (``models/granite_hybrid.py``):
+:func:`moe_ffn_dropless`, the same router and experts with no capacity
+(every pair kept: the pairs stably sorted by expert, one SwiGLU a
+contiguous segment, read back in the (T, k) order and combined as above),
+and :func:`moe_ffn_shared`, the routed experts plus a shared SwiGLU expert
+that every token takes.
 """
 
 from __future__ import annotations
@@ -29,11 +36,17 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch import trace
 from repro_torch.dist.sharding import (P, all_gather, axis_group, mesh_axes, on_mesh,
                                        shard_map_compat)
-from repro_torch.models.layers import COMPUTE_DTYPE, matmul, swiglu
+from repro_torch.models.layers import COMPUTE_DTYPE, dense_ffn, matmul, swiglu
 
-__all__ = ["moe_ffn", "moe_ffn_local", "route"]
+__all__ = ["moe_ffn", "moe_ffn_dropless", "moe_ffn_local", "moe_ffn_shared", "route"]
+
+# tokens a dropless dispatch gathers at once: its (token, expert) rows and
+# their outputs are two buffers of tokens × k × D bf16 (1.3 GB each at
+# 16384 tokens, k 10, D 4096)
+DISPATCH_TOKENS = 16384
 
 
 def route(x: torch.Tensor, router_w: torch.Tensor, k: int):
@@ -104,6 +117,82 @@ def moe_ffn_local(
     ye = torch.cat([ye, torch.zeros((1, d), dtype=dt, device=x.device)], 0)
     out = ye[slot] * (gval.reshape(-1)[:, None] * keep[:, None]).to(dt)
     return out.reshape(t, k, d).sum(1)
+
+
+def moe_ffn_dropless(
+    x: torch.Tensor,  # (T, D) tokens
+    router_w: torch.Tensor,  # (D, E)
+    w_gate: torch.Tensor,  # (E, D, F)
+    w_up: torch.Tensor,  # (E, D, F)
+    w_down: torch.Tensor,  # (E, F, D)
+    *,
+    k: int,
+) -> torch.Tensor:
+    """:func:`moe_ffn_local`'s router, experts and combination with every
+    (token, choice) pair kept, whatever the load. The pairs of each
+    :data:`DISPATCH_TOKENS` tokens are stably sorted by expert, each
+    expert's SwiGLU runs once over its contiguous segment, and the outputs
+    go back to the (T, k) order, scaled by their gates in bf16 and summed over the k
+    choices. The segments' sizes are read on the host once a call, for
+    every chunk at once (one sync). A span ``moe.dispatch`` (layer ``moe``)
+    counts the ``pairs`` that went through an expert's product (T · k when
+    none is dropped), the ``experts_hit``, the largest load an expert takes
+    (``max_load``) and the host ``syncs``."""
+    t, d = x.shape
+    e = router_w.shape[1]
+    dt = COMPUTE_DTYPE
+    chunk = DISPATCH_TOKENS
+    with trace.span("moe.dispatch", "moe") as sp:
+        gval, gidx = route(x, router_w, k)
+        chunks = -(-t // chunk)
+        owner = (torch.arange(t, device=x.device) // chunk)[:, None] * e + gidx
+        loads = torch.bincount(owner.reshape(-1), minlength=chunks * e).view(chunks, e)
+        per_expert = loads.sum(0)
+        host = torch.cat([loads.reshape(-1), per_expert]).tolist()  # the one sync
+        loads, per_expert = [host[c * e:(c + 1) * e] for c in range(chunks)], host[chunks * e:]
+        sp.count(experts_hit=sum(n > 0 for n in per_expert), max_load=max(per_expert), syncs=1)
+        out = torch.empty((t, d), dtype=dt, device=x.device)
+        pairs = 0
+        for c in range(chunks):
+            lo, hi = c * chunk, min(t, (c + 1) * chunk)
+            order = torch.argsort(gidx[lo:hi].reshape(-1), stable=True)
+            xs = x[lo + order // k].to(dt)  # (pairs, D), by expert
+            ys = torch.empty_like(xs)
+            start = 0
+            for ex, n in enumerate(loads[c]):
+                if n:
+                    seg = xs[start:start + n]
+                    h = swiglu(matmul(seg, w_gate[ex]), matmul(seg, w_up[ex]))
+                    ys[start:start + n] = matmul(h, w_down[ex])
+                    start += n
+            pairs += start
+            del xs
+            ys *= gval[lo:hi].reshape(-1)[order, None].to(dt)
+            back = torch.empty_like(ys)
+            back[order] = ys
+            del ys
+            out[lo:hi] = back.view(hi - lo, k, d).sum(1)
+        sp.count(pairs=pairs)
+    return out
+
+
+def moe_ffn_shared(x: torch.Tensor, params: Dict[str, torch.Tensor], *, k: int,
+                   dropless: bool) -> torch.Tensor:
+    """The routed experts and, beside them, the shared SwiGLU expert that
+    every token takes, summed: x (T, D) -> (T, D). ``params``: ``router``
+    (D, E), ``w_gate``, ``w_up`` (E, D, F), ``w_down`` (E, F, D),
+    ``shared_gate``, ``shared_up`` (D, Fs) and ``shared_down`` (Fs, D).
+    ``dropless``: :func:`moe_ffn_dropless` (a prefill); else
+    :func:`moe_ffn_local` with a capacity of every token, whose shapes do
+    not depend on the routing, so that a decode step can be captured (every
+    expert's product runs over T slots)."""
+    args = (x, params["router"], params["w_gate"], params["w_up"], params["w_down"])
+    if dropless:
+        routed = moe_ffn_dropless(*args, k=k)
+    else:
+        routed = moe_ffn_local(*args, k=k, dropless_threshold=x.shape[0] * k)
+    return routed + dense_ffn(x, params["shared_gate"], params["shared_up"],
+                              params["shared_down"])
 
 
 def moe_ffn(

@@ -21,8 +21,9 @@ Then the final RMSNorm and the LM head, tied to the embedding.
 
 Prefill runs the ``ssm_scan`` kernel in each layer and the tensor-core
 ``flash_attention`` kernel at each use on the card; decode updates each
-Mamba2 state in O(1) and attends against each use's own KV cache, a
-generate's steps replayed as CUDA graphs on the card (:class:`Decoder`). Norms
+Mamba2 state in O(1) and attends against each use's own KV cache in place
+(:func:`_step`), a generate's steps replayed as CUDA graphs on the card
+(:class:`repro_torch.models.decoding.Decoder`). Norms
 scale by ``1 + weight``, as everywhere in the port. Matrices are held in
 bf16, norms, biases, decays and skips in fp32.
 """
@@ -38,9 +39,10 @@ import torch.nn.functional as F
 from repro_torch.configs.base import Zamba2Config
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import blocked_attention, decode_attention
-from repro_torch.models.layers import COMPUTE_DTYPE, matmul, normal_init
+from repro_torch.models.layers import COMPUTE_DTYPE, matmul, normal_init, normal_stack
+from repro_torch.models.layers import rms_norm_fused as _rms
 
-__all__ = ["init_params", "init_cache", "prefill", "decode_step", "Decoder"]
+__all__ = ["init_params", "init_cache", "prefill"]
 
 # init scales of the random weights: logits of std about 3 through the
 # tied head; the final norm's scale drawn around 0 (N(0, 1)), or the tied
@@ -54,16 +56,6 @@ BRANCH_GAIN = 0.05  # Mamba2 out-projection: each layer adds about this per chan
 USE_GAIN = 0.2  # each use's linear
 ADAPTER_GAIN = 0.5
 DT_MIN, DT_MAX = 1e-3, 1e-1  # Mamba2's time-step range (the published config's)
-
-
-def _draw(gen, lead: int, shape, std: Optional[float], dtype, dev) -> torch.Tensor:
-    """``lead`` stacked normal draws of ``shape``, each drawn in fp32 and
-    stored as ``dtype`` one at a time (the stack is never held in fp32)."""
-    out = torch.empty((lead, *shape), dtype=dtype, device=dev)
-    if gen is not None:
-        for i in range(lead):
-            out[i] = normal_init(gen, tuple(shape), std, dtype=dtype, device=dev)
-    return out
 
 
 def init_params(cfg: Zamba2Config, gen: Optional[torch.Generator], dev: torch.device,
@@ -82,7 +74,7 @@ def init_params(cfg: Zamba2Config, gen: Optional[torch.Generator], dev: torch.de
         return torch.zeros(shape, dtype=f32, device=dev)
 
     def mat(lead, *shape, std=None, dtype=wdt):
-        return _draw(gen, lead, shape, std, dtype, dev)
+        return normal_stack(gen, lead, shape, std, dtype, dev)
 
     if gen is None:
         dt_bias, a_log = torch.empty((L, h), device=dev), torch.empty((L, h), device=dev)
@@ -148,13 +140,6 @@ def _layer(tree: Dict[str, torch.Tensor], i: int) -> Dict[str, torch.Tensor]:
 def _uses(cfg: Zamba2Config) -> Dict[int, int]:
     """Layer id -> its use number j (shared block j mod num_mem_blocks)."""
     return {layer: j for j, layer in enumerate(cfg.hybrid_layer_ids)}
-
-
-def _rms(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
-    """RMSNorm in fp32 scaled by 1 + ``w``, in x's dtype: the port's
-    ``layers.rms_norm``, in PyTorch's one fused operation (decoding is
-    bound by launches)."""
-    return F.rms_norm(x.float(), (x.shape[-1],), 1.0 + w, eps).to(x.dtype)
 
 
 def _qkv(x, x_emb, bp, cfg: Zamba2Config, positions):
@@ -251,69 +236,3 @@ def _step(cfg: Zamba2Config, params, tokens: torch.Tensor, pos: torch.Tensor, ca
         p, c = _layer(params["mamba"], layer), _layer(cache["mamba"], layer)
         x = x + ssm_mod.mamba2_grouped_decode(_mamba_in(x, t, p, cfg), p, cfg, c, c)
     return _logits(cfg, params, x[:, 0])
-
-
-def _copy_cache(dst, src) -> None:
-    for name in ("k", "v"):
-        dst[name].copy_(src[name])
-    for name in ("state", "conv"):
-        dst["mamba"][name].copy_(src["mamba"][name])
-
-
-class Decoder:
-    """The decode steps of one generate from a prompt's ``cache``, which is
-    not modified: two sets of cache buffers taken in turn, and on the card a
-    CUDA graph of :func:`_step` on each, captured when the decoder is made:
-    a step is about 4,400 device operations, which issued one by one from
-    Python took 134 ms against the card's 86 (NVIDIA H100). A step copies
-    its input (the prompt's cache, then the set written last) into the
-    other set and runs there in place. The capture is thread-local, so that
-    other workers' threads may launch meanwhile."""
-
-    def __init__(self, cfg: Zamba2Config, params, cache) -> None:
-        dev = cache["k"].device
-        self.sets = [init_cache(cfg, cache["k"].shape[1], cache["k"].shape[2], dev) for _ in (0, 1)]
-        self.tokens = torch.zeros((cache["k"].shape[1], 1), dtype=torch.long, device=dev)
-        self.pos = torch.zeros((), dtype=torch.long, device=dev)
-        self.cfg, self.params, self.cache = cfg, params, cache
-        self.last: Optional[int] = None  # the set written last
-        self.graphs: list = [None, None]
-        self.logits: list = [None, None]
-        if dev.type == "cuda":
-            self._capture()
-
-    def _capture(self) -> None:
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):  # a first run outside the capture (cuBLAS handles)
-            _step(self.cfg, self.params, self.tokens, self.pos, self.sets[0])
-        torch.cuda.current_stream().wait_stream(side)
-        pool = None
-        for i, buffers in enumerate(self.sets):
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
-                self.logits[i] = _step(self.cfg, self.params, self.tokens, self.pos, buffers)
-            self.graphs[i], pool = graph, graph.pool()
-
-    def step(self, batch, cur_len: int) -> torch.Tensor:
-        """Logits fp32 (B, V) of the token ``batch["tokens"]`` (B, 1) at ``cur_len``."""
-        i = self.last = 1 if self.last == 0 else 0
-        _copy_cache(self.sets[i], self.cache)
-        self.cache = self.sets[i]  # the next step's input
-        self.tokens.copy_(batch["tokens"])
-        self.pos.fill_(int(cur_len))
-        if self.graphs[i] is None:
-            return _step(self.cfg, self.params, self.tokens, self.pos, self.sets[i])
-        self.graphs[i].replay()
-        return self.logits[i].clone()  # 1 MB: the caller may keep it
-
-
-def decode_step(cfg: Zamba2Config, params, tokens: torch.Tensor, cache, cur_len: int):
-    """One token (B, 1) at position ``cur_len``, run eagerly; returns
-    (logits fp32 (B, V), new cache): a fresh set shaped by
-    :func:`init_cache`, ``cache`` copied into it and the step run there.
-    ``cache`` is not modified."""
-    out = init_cache(cfg, cache["k"].shape[1], cache["k"].shape[2], cache["k"].device)
-    _copy_cache(out, cache)
-    pos = torch.tensor(int(cur_len), dtype=torch.long, device=out["k"].device)
-    return _step(cfg, params, tokens, pos, out), out

@@ -95,7 +95,7 @@ def _published_7b():
 def test_decode_attention_calls_counts_a_step(monkeypatch, arch):
     """The model's count is the calls a decode step makes: one step of each
     family's reduced model on the CPU, its calls counted."""
-    from repro_torch.models import model as tmodel, zamba2 as tzamba2
+    from repro_torch.models import granite_hybrid as tgranite, model as tmodel, zamba2 as tzamba2
 
     cfg = tconfigs.reduced_config(tconfigs.get_config(arch))
     calls = []
@@ -104,7 +104,7 @@ def test_decode_attention_calls_counts_a_step(monkeypatch, arch):
         calls.append(1)
         return tattn.decode_attention(*args, **kwargs)
 
-    for mod in (tmodel, tzamba2):
+    for mod in (tmodel, tzamba2, tgranite):
         monkeypatch.setattr(mod, "decode_attention", counted)
     params = init_params(cfg, 0, device="cpu")
     batch = ({"frame_embeds": torch.zeros(1, 1, cfg.d_model, dtype=torch.bfloat16)}

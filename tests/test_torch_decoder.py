@@ -3,9 +3,10 @@ chained :func:`repro_torch.models.decode_step` calls, on the CPU, for every
 family's reduced config.
 
 The decoder's steps and the chained functional steps run the same
-arithmetic on the same cache values (a ``zamba2`` decoder its two sets of
-buffers, the functional step a fresh set a step), so their logits are held
-bit-equal, and neither modifies the prompt's cache.
+arithmetic on the same cache values (a ``zamba2`` or ``granite_hybrid``
+decoder its two sets of buffers, the functional step a fresh set a step),
+so their logits are held bit-equal, and neither modifies the prompt's
+cache.
 """
 
 import pytest
@@ -13,9 +14,10 @@ import torch
 
 from repro_torch import configs as tconfigs
 from repro_torch.models import decode_step, decoder, init_cache, init_params, prefill
-from repro_torch.models import zamba2 as tzamba2
+from repro_torch.models import decoding
 
 PROMPT, STEPS = 5, 3
+IN_PLACE = ("zamba2", "granite_hybrid")  # the families that decode through decoding.Decoder
 
 
 def _leaves(tree):
@@ -41,7 +43,8 @@ def _batch(cfg, length, gen, *, prompt=False):
 def test_decoder_steps_equal_chained_decode_steps(arch):
     """A prefill, then 3 steps through a decoder and 3 chained
     ``decode_step`` calls: bit-equal logits, the prompt's cache unchanged;
-    a ``zamba2`` step returns a fresh cache of ``init_cache``'s keys."""
+    a ``zamba2`` or ``granite_hybrid`` step returns a fresh cache of
+    ``init_cache``'s keys."""
     cfg = tconfigs.reduced_config(tconfigs.get_config(arch))
     params = init_params(cfg, 0, device="cpu")
     gen = torch.Generator().manual_seed(1)
@@ -55,7 +58,7 @@ def test_decoder_steps_equal_chained_decode_steps(arch):
         chained, want = cache, []
         for i, batch in enumerate(steps):
             logits, new = decode_step(cfg, params, batch, chained, n + i)
-            if cfg.family == "zamba2":
+            if cfg.family in IN_PLACE:
                 fresh = init_cache(cfg, 2, max_len, device="cpu")
                 assert _leaves(new).keys() == _leaves(fresh).keys()
                 assert all(t is not u for t, u in zip(_leaves(new).values(),
@@ -65,5 +68,5 @@ def test_decoder_steps_equal_chained_decode_steps(arch):
     for g, w in zip(got, want):
         assert g.dtype == torch.float32 and torch.equal(g, w)
     assert all(torch.equal(v, kept[k]) for k, v in _leaves(cache).items())
-    if cfg.family == "zamba2":
-        assert isinstance(dec, tzamba2.Decoder) and dec.last == (STEPS - 1) % 2
+    if cfg.family in IN_PLACE:
+        assert isinstance(dec, decoding.Decoder) and dec.last == (STEPS - 1) % 2

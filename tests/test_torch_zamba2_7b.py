@@ -31,7 +31,7 @@ from repro_torch import trace
 from repro_torch.configs import zamba2_7b
 from repro_torch.core import sa_serve as tserve
 from repro_torch.models import decoder, init_cache, init_params, prefill
-from repro_torch.models import attention as tattn, ssm as tssm, zamba2 as tz
+from repro_torch.models import attention as tattn, decoding, ssm as tssm, zamba2 as tz
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent))
 import zamba2_reference as ref  # noqa: E402
@@ -178,7 +178,7 @@ def test_decode_through_the_cache_matches_the_full_forward(cfg, params, tokens):
     # steps take the decoder's two sets of buffers in turn
     first = prefill(cfg, params, {"tokens": tokens[:, :PROMPT]}, max_len=PROMPT + STEPS)[1]
     assert all(torch.equal(first[k], before[k]) for k in before)
-    assert isinstance(dec, tz.Decoder) and written == [0, 1, 0]
+    assert isinstance(dec, decoding.Decoder) and written == [0, 1, 0]
     assert len(dec.sets) == 2 and dec.sets[0]["k"] is not dec.sets[1]["k"]
     assert all(s["k"] is not cache["k"] for s in dec.sets)
 
